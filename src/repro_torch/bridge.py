@@ -1,0 +1,106 @@
+"""Carry weights between the JAX package and the port, through numpy.
+
+The JAX package keeps a model's parameters as two trees, ``frozen`` and
+``lora``, of nested dicts.  Its layer blocks are stacked for ``lax.scan``:
+every leaf under ``"blocks"`` has a leading layer axis.  The port keeps the
+same dicts with the same keys and leaf layouts, except that ``"blocks"`` is
+a list with one dict per layer.  So the mapping is by path:
+
+- ``frozen[k1][k2]...`` -> ``frozen[k1][k2]...``, the same array;
+- ``frozen["blocks"][k1]...[i]`` (layer ``i`` of the stacked leaf) ->
+  ``frozen["blocks"][i][k1]...``; likewise for ``lora``.
+
+bfloat16 numpy arrays (ml_dtypes) cross as their 16-bit patterns, so
+nothing is rounded on the way.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _to_torch(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.uint16)
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))   # a copy: JAX arrays are read-only
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _tree_to_torch(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    return _to_torch(tree, device, dtype)
+
+
+def _unstack(tree, i):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _n_layers(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
+def _from_jax(tree, device, dtype):
+    out = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            out[k] = [_tree_to_torch(_unstack(v, i), device, dtype)
+                      for i in range(_n_layers(v))]
+        else:
+            out[k] = _tree_to_torch(v, device, dtype)
+    return out
+
+
+def params_from_jax_numpy(cfg, frozen_np, lora_np, device="cuda", dtype=None):
+    """The JAX package's ``frozen``/``lora`` trees (nested dicts of numpy
+    arrays, ``blocks`` leaves stacked on a leading layer axis) -> the
+    port's ``{"frozen", "lora"}`` parameters on ``device``.  ``dtype``
+    casts the floating leaves (None keeps each leaf's own)."""
+    n = _n_layers(frozen_np["blocks"])
+    if n != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: the tree has {n} layers, the config "
+                         f"{cfg.num_layers}")
+    return {"frozen": _from_jax(frozen_np, device, dtype),
+            "lora": _from_jax(lora_np, device, dtype)}
+
+
+def _to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    return _to_numpy(tree)
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def params_to_jax_numpy(params):
+    """The inverse of :func:`params_from_jax_numpy`: the port's parameters
+    -> ``(frozen_np, lora_np)`` in the JAX package's layout."""
+    out = []
+    for name in ("frozen", "lora"):
+        tree = {}
+        for k, v in params[name].items():
+            tree[k] = (_stack([_tree_to_numpy(layer) for layer in v])
+                       if k == "blocks" else _tree_to_numpy(v))
+        out.append(tree)
+    return tuple(out)

@@ -1,0 +1,24 @@
+"""Config registry: public ``--arch`` ids -> ArchConfig.
+
+The port registers the architectures whose paths it has ported so far.
+Every other id of the JAX package's registry raises ``KeyError`` naming
+the ROADMAP queue that brings it over.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig, InputShape, INPUT_SHAPES  # noqa: F401
+from repro_torch.configs import llama3_8b
+
+REGISTRY = {
+    "llama3-8b": llama3_8b.CONFIG,
+}
+
+ASSIGNED = list(REGISTRY)
+
+
+def get_config(arch: str) -> ArchConfig:
+    if arch not in REGISTRY:
+        raise KeyError(
+            f"arch {arch!r} is not ported yet (ROADMAP.md, queue 1: "
+            f"modules to port); ported: {sorted(REGISTRY)}")
+    return REGISTRY[arch]

@@ -1,0 +1,86 @@
+"""Wrapper of the fused LoRA projection ``y = x W + s (x A) B``.
+
+A CPU tensor goes to the plain version (:func:`lora_matmul_ref`); a CUDA
+tensor launches the hand-written kernel ``csrc/lora_matmul.cu`` or raises.
+There is no fallback from the kernel to the plain version.
+
+``lora_matmul.launches`` counts kernel launches (never plain-version
+calls), so a run can show that its projections went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lora.ref import lora_matmul_ref
+
+MAX_RANK = 64
+_SOURCES = ("lora_matmul.cu",)
+_FUNCS = {torch.bfloat16: "lora_matmul_bf16", torch.float32: "lora_matmul_f32"}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    return _build.load("lora_matmul", _SOURCES, {
+        name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()})
+
+
+def lora_matmul(x, w, a, b, scale: float):
+    """x: (..., K); w: (K, O); a: (K, r); b: (r, O) -> (..., O).
+
+    ``r`` may be 0 (no adapter).  On CUDA all four tensors must share
+    ``x``'s dtype (bf16 or f32) and be contiguous, and ``r <= 64``.
+    """
+    K = x.shape[-1]
+    O = w.shape[-1]
+    r = a.shape[-1]
+    if w.shape != (K, O) or a.shape != (K, r) or b.shape != (r, O):
+        raise ValueError(f"lora_matmul shapes: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if x.device.type == "cpu":
+        return lora_matmul_ref(x, w, a, b, scale)
+    return _launch(x, w, a, b, scale)
+
+
+lora_matmul.launches = 0
+
+
+def _launch(x, w, a, b, scale: float):
+    if x.device.type != "cuda":
+        raise ValueError(f"lora_matmul: no kernel for device {x.device}")
+    fn_name = _FUNCS.get(x.dtype)
+    if fn_name is None:
+        raise TypeError(f"lora_matmul kernel takes bf16 or f32, got {x.dtype}")
+    for name, t in (("w", w), ("a", a), ("b", b)):
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError(f"lora_matmul: {name} is {t.dtype} on {t.device}, "
+                            f"x is {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"lora_matmul: {name} is not contiguous")
+    if not x.is_contiguous():
+        raise ValueError("lora_matmul: x is not contiguous")
+    K, O, r = w.shape[0], w.shape[1], a.shape[1]
+    if r > MAX_RANK:
+        raise ValueError(f"lora_matmul kernel takes rank <= {MAX_RANK}, got {r}")
+    T = x.numel() // K
+    y = torch.empty(x.shape[:-1] + (O,), dtype=x.dtype, device=x.device)
+    if T == 0 or O == 0:
+        return y
+    n_vec = 16 // x.element_size()
+    vec = (K % n_vec == 0 and O % n_vec == 0
+           and all(t.data_ptr() % 16 == 0 for t in (x, w, a)))
+    fn = getattr(library(), fn_name)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), T, K, O, r, float(scale), int(vec), stream)
+    if err != 0:
+        raise RuntimeError(f"lora_matmul kernel launch failed: CUDA error "
+                           f"{err} (T={T}, K={K}, O={O}, r={r}, {x.dtype})")
+    lora_matmul.launches += 1
+    return y

@@ -15,3 +15,8 @@ def make_abstract_mesh(sizes, names):
         return AbstractMesh(sizes, names)
     except TypeError:
         return AbstractMesh(tuple(zip(names, sizes)))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
