@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 (sm_90a).
+"""Drive the PyTorch port's two main paths on one NVIDIA H100 (sm_90a): the
+serving path (full llama3-8b) and LoRA fine-tuning through ELSA's split
+channel (full-width olmo-1b, ``launch/train.py --full --elsa``).
 
     python3 chip_smoke.py
 
@@ -7,15 +9,29 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 
 1. device: the card's name and power limit, compute capability (9, 0);
    TF32 off for matmuls and cuDNN;
-2. build: the LoRA kernel library from ``src/repro_torch/csrc`` by nvcc;
-3. kernel against its plain version at llama3-8b's decode shapes (and one
-   ragged shape), in bf16 and f32, with times, bounds and a library yardstick;
+2. build: the three kernel libraries from ``src/repro_torch/csrc``, one nvcc
+   per source, all started together;
+3. the LoRA kernel against its plain version at llama3-8b's decode shapes,
+   one ragged shape and olmo-1b's training shape (T 512), in bf16 and f32,
+   with times, bounds and a library yardstick;
+3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
+   against their plain versions, forward and backward, at the training
+   shapes and ragged ones, in bf16 and f32, with times and bounds;
 4. full-width parity: llama3-8b decode steps, kernel path against plain path
    on the same weights (f32 at 2 layers, bf16 at full depth);
 5. serving: full llama3-8b (32 layers, bf16, random weights from a seed) in
    ``ServingEngine`` through the kernel, then ``swap_adapter`` and a second
    batch; the kernel's launch count must be 4 projections x 32 layers x ticks;
-6. where the time goes: a ``torch.profiler`` window over decode ticks.
+6. where the time goes: a ``torch.profiler`` window over decode ticks;
+7. training parity: one ``make_train_step`` step of full-width olmo-1b (f32,
+   4 layers) through the channel, kernel path against plain path, checked
+   over the tree and in each block with soft attention, reported at the
+   init;
+8. training: the launcher (``launch.train._main``) on full olmo-1b (16
+   layers, bf16, ``--elsa``) for 20 steps of its batch stream; the loss must
+   fall and each kernel's launches per step must be what the path implies;
+9. where a training step's time goes: ``torch.profiler`` over one step, and
+   what building the channel each step costs.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -23,6 +39,7 @@ repository beside it, the script fails before printing either.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -38,11 +55,23 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import split_training  # noqa: E402
+from repro_torch.core.sketch import (SketchPlan, make_plan,  # noqa: E402
+                                     selection_matrices)
+from repro_torch.core.split_training import Channel  # noqa: E402
+from repro_torch.core.ssop import SSOP  # noqa: E402
+from repro_torch.kernels.count_sketch import ops as cs_ops  # noqa: E402
+from repro_torch.kernels.count_sketch import ref as cs_ref  # noqa: E402
 from repro_torch.kernels.lora import ops as lora_ops  # noqa: E402
 from repro_torch.kernels.lora.ref import lora_matmul_ref  # noqa: E402
+from repro_torch.kernels.ssop import ops as ssop_ops  # noqa: E402
+from repro_torch.kernels.ssop.ref import ssop_apply_ref  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.train import make_serve_step  # noqa: E402
 from repro_torch.models import common, zoo  # noqa: E402
 from repro_torch.models.params import init_tree  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -152,7 +181,8 @@ def kernel_phase():
     accumulate in fp32 and round once, so they differ only in the order of
     summation (and, in bf16, in at most one rounding of an output)."""
     shapes = [("q", 8, 4096, 4096, 16), ("k/v", 8, 4096, 1024, 16),
-              ("o", 8, 4096, 4096, 16), ("ragged", 5, 4000, 1000, 16)]
+              ("o", 8, 4096, 4096, 16), ("ragged", 5, 4000, 1000, 16),
+              ("train", 512, 2048, 2048, 16)]
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
@@ -195,6 +225,144 @@ def kernel_phase():
                   f"{bound_ms / ms:.1%} of bound", flush=True)
             del sets, w, a, b
     return rows
+
+
+# ---------------------------------------------------------------------------
+# 3b. the channel's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _channel_bound(op, T, D, r, Y, Z, dtype):
+    """Least time for the op's work: each input read once and each output
+    written once at 3.35 TB/s, or its operations at the dtype's peak,
+    whichever is larger.  Plan arrays (ptr, idx, bucket, sign) are 4 bytes
+    an entry."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    TD, TYZ, YD, ptr = T * D, T * Y * Z, Y * D, Y * Z + 1
+    ssop = ((2 * TD + D * r + r * r) * el, 4 * TD * r + 2 * T * r * r)
+    nbytes, ops = {
+        "ssop forward": ssop,
+        "ssop backward": ssop,
+        "compress": ((TD + TYZ) * el + (ptr + 2 * YD) * 4, 2 * T * YD),
+        "median backward": ((TD + 2 * TYZ) * el + (ptr + 3 * YD) * 4,
+                            2 * T * YD),
+        "decompress": ((TYZ + TD) * el + 2 * YD * 4, TD * Y * Y),
+        "compress backward": ((TYZ + TD) * el + 2 * YD * 4, 2 * T * YD),
+    }[op]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def channel_kernel_phase():
+    """SS-OP (forward, and its backward: the same kernel with Wᵀ), the
+    scatter kernel (compress; the median's backward) and the gather kernel
+    (decompress; compress's backward), each against its plain version on the
+    same inputs.  Decompress only gathers, negates and compares, so it is
+    held to equality; the others sum in fp32 and round once on both sides,
+    so f32 is held to 1e-5 and bf16 to 2^-7 of the output's largest value
+    (summation order, and at most one bf16 rounding of an output).  A
+    quarter of the buckets of every sketch are zero, so the median meets
+    ties.  Timed (bf16 at the training shapes only) as in phase 3, rotating
+    over input copies that exceed L2."""
+    cases = [("train", 512, 2048, 16, 3, 325),
+             ("ragged Y4", 5, 2000, 16, 4, 37),
+             ("ragged Y5", 5, 2000, 16, 5, 37)]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, T, D, r, Y, Z in cases:
+            plan = make_plan(D, Y, Z, seed=1, device="cuda")
+            b, s = plan.bucket, plan.sign
+            basis = torch.linalg.qr(torch.randn(D, r, generator=g,
+                                                device="cuda"))[0]
+            v = torch.linalg.qr(torch.randn(r, r, generator=g,
+                                            device="cuda"))[0]
+            w = (v.T - torch.eye(r, device="cuda")).to(dtype).contiguous()
+            wt = w.T.contiguous()
+            uu = basis.to(dtype).contiguous()
+            sel = selection_matrices(plan).to(dtype)
+
+            def h_():
+                return torch.randn(T, D, generator=g, device="cuda").to(dtype)
+
+            def sk_():
+                u = torch.randn(T, Y, Z, generator=g, device="cuda").to(dtype)
+                u[:, :, :max(1, Z // 4)] = 0
+                return u
+
+            table = [
+                ("ssop_apply", "ssop forward",
+                 lambda h: ssop_ops.ssop_apply_td(h, uu, w),
+                 lambda h: ssop_apply_ref(h, uu, w), None, lambda: (h_(),)),
+                ("ssop_apply", "ssop backward",
+                 lambda gy: ssop_ops.ssop_apply_td(gy, uu, wt),
+                 lambda gy: ssop_apply_ref(gy, uu, wt), None, lambda: (h_(),)),
+                ("sketch_scatter", "compress",
+                 lambda h: cs_ops.sketch_scatter(h, plan),
+                 lambda h: cs_ref.compress_ref(h, b, s, Z),
+                 lambda h: torch.einsum("td,ydz->tyz", h, sel),
+                 lambda: (h_(),)),
+                ("sketch_scatter", "median backward",
+                 lambda gy, u: cs_ops.sketch_scatter(gy, plan, u=u),
+                 lambda gy, u: cs_ref.median_backward_ref(gy, u, b, s), None,
+                 lambda: (h_(), sk_())),
+                ("sketch_gather", "decompress",
+                 lambda u: cs_ops.sketch_gather(u, plan),
+                 lambda u: cs_ref.decompress_ref(u, b, s), None,
+                 lambda: (sk_(),)),
+                ("sketch_gather", "compress backward",
+                 lambda u: cs_ops.sketch_gather(u, plan, median=False),
+                 lambda u: cs_ref.gather_sum_ref(u, b, s),
+                 lambda u: torch.einsum("tyz,ydz->td", u, sel),
+                 lambda: (sk_(),)),
+            ]
+            for kernel, op, fn, plain, lib, make in table:
+                args = make()
+                n0 = getattr(_wrapper(kernel), "launches")
+                got = fn(*args)
+                torch.cuda.synchronize()
+                check(_wrapper(kernel).launches == n0 + 1,
+                      f"{kernel} {op}: the kernel did not launch")
+                want = plain(*args)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                tol = (0.0 if op == "decompress" else
+                       (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * scale)
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"{kernel} {op}: {tuple(got.shape)} {got.dtype}")
+                check(err <= tol, f"{kernel} {op} {case} {dtype}: max abs "
+                                  f"err {err:.3e} > {tol:.3e}")
+                row = dict(kernel=kernel, op=op, case=case, T=T, D=D, r=r,
+                           Y=Y, Z=Z, dtype=str(dtype).removeprefix("torch."),
+                           max_abs_err=err, tol=tol)
+                msg = ""
+                if case == "train" and dtype == torch.bfloat16:
+                    nbytes = sum(t.numel() * t.element_size() for t in args)
+                    sets = [args] + [make() for _ in range(
+                        max(1, -(-2 * L2_BYTES // nbytes)) - 1)]
+                    row["ms"] = _time_ms(fn, sets)
+                    row["plain_ms"] = _time_ms(plain, sets)
+                    row["library_ms"] = _time_ms(lib, sets) if lib else None
+                    row["bound_ms"], row["bound_by"] = _channel_bound(
+                        op, T, D, r, Y, Z, dtype)
+                    lib_s = (f"{row['library_ms'] * 1e3:.2f} us" if lib
+                             else "-")
+                    msg = (f"  kernel {row['ms'] * 1e3:.2f} us  plain "
+                           f"{row['plain_ms'] * 1e3:.2f} us  library {lib_s}"
+                           f"  bound {row['bound_ms'] * 1e3:.2f} us "
+                           f"({row['bound_by']})  "
+                           f"{row['bound_ms'] / row['ms']:.1%} of bound")
+                    del sets
+                rows.append(row)
+                print(f"{kernel:14s} {op:17s} {case:9s} {row['dtype']:8s} "
+                      f"err {err:.3e} (tol {tol:.3e}){msg}", flush=True)
+    return rows
+
+
+def _wrapper(kernel):
+    return {"ssop_apply": ssop_ops.ssop_apply_td,
+            "sketch_scatter": cs_ops.sketch_scatter,
+            "sketch_gather": cs_ops.sketch_gather}[kernel]
 
 
 # ---------------------------------------------------------------------------
@@ -381,16 +549,332 @@ def profile_phase(cfg, params, n_ticks=8):
                              for us, n, key in rows[:12]])
 
 
+# ---------------------------------------------------------------------------
+# 7. training parity
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_path():
+    """Route the projections and the channel's four stages through the
+    plain versions, differentiated by autograd (the comparison side of
+    phase 7; the port never does this itself)."""
+    st = split_training
+    saved = (common.lora_matmul, st.apply_ssop, st.apply_ssop_inverse,
+             st.compress, st.decompress)
+    common.lora_matmul = lora_matmul_ref
+    eye = lambda v: torch.eye(v.shape[0], dtype=v.dtype, device=v.device)
+    st.apply_ssop = lambda h, op: ssop_apply_ref(
+        h, op.u.to(h.dtype), (op.v.T - eye(op.v)).to(h.dtype))
+    st.apply_ssop_inverse = lambda h, op: ssop_apply_ref(
+        h, op.u.to(h.dtype), (op.v - eye(op.v)).to(h.dtype))
+    st.compress = lambda h, plan: cs_ref.compress_ref(h, plan.bucket,
+                                                      plan.sign, plan.z)
+    st.decompress = lambda u, plan: cs_ref.decompress_ref(u, plan.bucket,
+                                                          plan.sign)
+    try:
+        yield
+    finally:
+        (common.lora_matmul, st.apply_ssop, st.apply_ssop_inverse,
+         st.compress, st.decompress) = saved
+
+
+def _counts():
+    return {"ssop_apply": ssop_ops.ssop_apply_td.launches,
+            "sketch_scatter": cs_ops.sketch_scatter.launches,
+            "sketch_gather": cs_ops.sketch_gather.launches,
+            "lora_matmul": lora_ops.lora_matmul.launches}
+
+
+def _zero_counts():
+    ssop_ops.ssop_apply_td.launches = 0
+    cs_ops.sketch_scatter.launches = cs_ops.sketch_gather.launches = 0
+    lora_ops.lora_matmul.launches = 0
+
+
+def _per_step(cfg):
+    """Launches one training step through the channel implies: per cut,
+    SS-OP and its inverse forward and backward (4), compress's scatter and
+    the median backward's scatter (2), decompress's gather and compress
+    backward's gather (2); LoRA 4 projections a layer, once forward and once
+    more when the checkpointed blocks are recomputed for the backward."""
+    return {"ssop_apply": 8, "sketch_scatter": 4, "sketch_gather": 4,
+            "lora_matmul": 2 * 4 * cfg.num_layers}
+
+
+def _max_abs(tree_a, tree_b=None):
+    leaves_a = tree_leaves(tree_a)
+    if tree_b is None:
+        return max(t.abs().max().item() for t in leaves_a)
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(leaves_a, tree_leaves(tree_b)))
+
+
+def _train_parity(qk_scale, checked):
+    """One step on the kernel path, the plain path and the plain path in
+    f64; returns the comparison (see :func:`train_parity_phase`).  With
+    ``checked`` false it only reports."""
+    cfg = get_config("olmo-1b").with_(num_layers=4, param_dtype="float32",
+                                      activation_dtype="float32")
+    check(train.elsa_boundaries(cfg) == (1, 1), "4 layers must give (1, 1)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_tree(zoo.get_model(cfg).specs(cfg), gen, torch.float32,
+                       "cuda")
+    _random_b(params["lora"], gen, 0.02)
+    for layer in params["frozen"]["blocks"]:
+        layer["attn"]["wq"].mul_(qk_scale)
+        layer["attn"]["wk"].mul_(qk_scale)
+    _, z = train.elsa_channel_specs(cfg)
+    ch = train.channel_params(cfg, z, "cuda")
+    batch = next(train.batch_stream(cfg, 8, 64, "cuda"))
+    lr = 3e-3
+
+    def run(c, p):
+        opt = AdamW(lr=lr)
+        step = train.make_train_step(c, optimizer=opt, elsa_z=z)
+        new, state, loss = step(p["frozen"], p["lora"], opt.init(p["lora"]),
+                                {**batch, "_channel": ch})
+        torch.cuda.synchronize()
+        return new, state["m"], float(loss)
+
+    _zero_counts()
+    k_new, k_m, k_loss = run(cfg, params)
+    counts = _counts()
+    check(counts == _per_step(cfg), f"kernel path launches {counts}")
+    with plain_path():
+        p_new, p_m, p_loss = run(cfg, params)
+        cfg64 = cfg.with_(param_dtype="float64", activation_dtype="float64")
+        p64 = {k: tree_map(lambda t: t.double(), v)
+               for k, v in params.items()}
+        _, m64, loss64 = run(cfg64, p64)
+        del p64
+    check(_counts() == counts, "the plain path launched a kernel")
+    scale_m = _max_abs(p_m)
+    floor_loss, floor_m = abs(p_loss - loss64), _max_abs(p_m, m64)
+    err_loss, err_m = abs(k_loss - p_loss), _max_abs(k_m, p_m)
+    tol_loss = max(4 * floor_loss, 1e-5 * abs(p_loss))
+    tol_m = max(4 * floor_m, 1e-5 * scale_m)
+    print(f"f32 4-layer step, wq/wk x {qk_scale} ("
+          f"{'checked' if checked else 'report only'}): loss kernel "
+          f"{k_loss:.6f} plain {p_loss:.6f} (f64 {loss64:.6f}): err "
+          f"{err_loss:.3e} (tol {tol_loss:.3e}); m = 0.1 g: max|m| "
+          f"{scale_m:.3e}, err {err_m:.3e} (tol {tol_m:.3e}; plain f32 vs "
+          f"f64 {floor_m:.3e})")
+    blocks = []
+    for i, (km, pm, qm) in enumerate(zip(k_m["blocks"], p_m["blocks"],
+                                         m64["blocks"])):
+        blk = dict(block=i, max_m=_max_abs(pm), err_m=_max_abs(km, pm),
+                   floor_m=_max_abs(pm, qm))
+        blk["tol_m"] = max(4 * blk["floor_m"], 1e-5 * blk["max_m"])
+        blocks.append(blk)
+        print(f"  block {i}: max|m| {blk['max_m']:.3e}, err "
+              f"{blk['err_m']:.3e} (tol {blk['tol_m']:.3e} = "
+              f"{blk['tol_m'] / blk['max_m']:.2%} of max|m|; plain f32 vs "
+              f"f64 {blk['floor_m']:.3e})")
+    worst, n_ok, n_all = 0.0, 0, 0
+    for kn, pn, po, pm in zip(*(tree_leaves(t) for t in
+                                (k_new, p_new, params["lora"], p_m))):
+        firm = pm.abs() > 4 * err_m          # |g| above 4 x its error
+        d = ((kn - po) - (pn - po)).abs()[firm]
+        worst = max(worst, d.max().item() if d.numel() else 0.0)
+        n_ok += int(firm.sum())
+        n_all += pm.numel()
+    print(f"updated LoRA: max |delta_kernel - delta_plain| {worst:.3e} over "
+          f"the {n_ok}/{n_all} ({n_ok / n_all:.1%}) entries whose gradient "
+          f"is firm (tol {1e-3 * lr:.3e})")
+    check(np.isfinite(k_loss), "loss not finite")
+    if checked:
+        check(err_loss <= tol_loss, f"loss: {err_loss:.3e} > {tol_loss:.3e}")
+        check(err_m <= tol_m, f"gradients (m): {err_m:.3e} > {tol_m:.3e}")
+        for blk in blocks:
+            check(blk["err_m"] <= blk["tol_m"],
+                  f"block {blk['block']} gradients (m): {blk['err_m']:.3e} "
+                  f"> {blk['tol_m']:.3e}")
+        b0 = blocks[0]
+        check(b0["tol_m"] <= 0.1 * b0["max_m"],
+              f"block 0: tol {b0['tol_m']:.3e} is over a tenth of max|m| "
+              f"{b0['max_m']:.3e}; the check would not see a wrong channel "
+              f"backward")
+        check(worst <= 1e-3 * lr, f"updated LoRA: {worst:.3e}")
+    del params, k_new, p_new
+    torch.cuda.empty_cache()
+    return dict(qk_scale=qk_scale, checked=checked, loss_kernel=k_loss,
+                loss_plain=p_loss, loss_f64=loss64, err_loss=err_loss,
+                tol_loss=tol_loss, err_m=err_m, tol_m=tol_m, max_m=scale_m,
+                plain_f32_vs_f64_m=floor_m, blocks=blocks,
+                lora_delta_err=worst, firm_share=n_ok / n_all,
+                launches=counts)
+
+
+def train_parity_phase():
+    """One ``make_train_step`` step of full-width olmo-1b, f32, 4 layers
+    (elsa_boundaries (1, 1): two real cuts), on the launcher's first batch
+    and channel: the kernel path against the plain path (autograd through
+    the plain versions).  The tolerance is set by the plain path's own f32
+    error, measured against the plain path in f64 on the same weights: the
+    kernel path must agree with the plain path to 4x that error, or 1e-5
+    of the scale (f32 sums of 2,048 products in another order), in the
+    loss and in AdamW's first moment m (0.1 x the LoRA gradient), over the
+    whole tree and in each block against that block's own error and scale.
+    Block 0's gradient is the only one that crosses both cuts, each cut's
+    SS-OP, SS-OPᵀ, scatter and gather backwards, so its tolerance must stay
+    within a tenth of its scale.  The updated LoRA moves by about lr x
+    sign(g) at step 1, so it must agree to 1e-3 x lr wherever |g| is above
+    4x the gradients' own disagreement; the share of such entries is
+    reported.
+
+    Checked with wq and wk scaled by 0.1 (soft attention).  At the init
+    (wq's fan-in is its head count, so attention scores reach ~100) the
+    plain path's own f32 error is several percent of the gradient's scale,
+    so 4x it leaves little to check: that case is reported, not checked."""
+    return {"soft_attention": _train_parity(0.1, checked=True),
+            "init": _train_parity(1.0, checked=False)}
+
+
+# ---------------------------------------------------------------------------
+# 8. training through the launcher
+# ---------------------------------------------------------------------------
+
+def train_phase(steps=20):
+    """``python -m repro_torch.launch.train --arch olmo-1b --full --elsa``
+    for ``steps`` steps of its batch stream, each step logged (so each ends
+    in a device sync and has its own host-clock time)."""
+    cfg = get_config("olmo-1b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()                                   # the main path starts
+    out = train._main(["--arch", "olmo-1b", "--full", "--elsa", "--steps",
+                       str(steps), "--log-every", "1", "--device", "cuda"])
+    counts = _counts()                               # the main path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [l for _, l in out["losses"]]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"losses {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"loss did not fall: first 5 {first:.4f}, last 5 "
+                        f"{last:.4f}")
+    want = {k: steps * v for k, v in _per_step(cfg).items()}
+    check(counts == want, f"launches {counts} != {want}")
+    step_s = statistics.median(out["step_s"][1:])
+    tokens = 8 * 64
+    print(f"training: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+          f" (mean of first 5 {first:.4f}, last 5 {last:.4f}); step "
+          f"{step_s * 1e3:.1f} ms (median of steps 2-{steps}, first "
+          f"{out['step_s'][0] * 1e3:.1f} ms) -> {tokens / step_s:.0f} "
+          f"tokens/s; peak memory {peak:.2f} GiB; launches per step "
+          f"{ {k: v // steps for k, v in counts.items()} }")
+    return dict(steps=steps, losses=losses, step_ms=step_s * 1e3,
+                first_step_ms=out["step_s"][0] * 1e3,
+                tokens_per_s=tokens / step_s, peak_gib=peak,
+                launches=counts), counts
+
+
+# ---------------------------------------------------------------------------
+# 9. where a training step's time goes
+# ---------------------------------------------------------------------------
+
+def train_profile_phase(n_wall=5):
+    """One training step of the launcher's configuration under
+    ``torch.profiler`` for the device time of each kernel; the wall time is
+    the median of ``n_wall`` unprofiled steps, each ending in a sync.  Idle
+    share = 1 - device busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("olmo-1b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_tree(zoo.get_model(cfg).specs(cfg), gen, cfg.dtype(),
+                       "cuda")
+    _, z = train.elsa_channel_specs(cfg)
+    ch = train.channel_params(cfg, z, "cuda")
+    stream = train.batch_stream(cfg, 8, 64, "cuda")
+    opt = AdamW(lr=3e-3)
+    step = train.make_train_step(cfg, optimizer=opt, elsa_z=z)
+    lora, state = params["lora"], opt.init(params["lora"])
+
+    def one():
+        nonlocal lora, state
+        lora, state, loss = step(params["frozen"], lora, state,
+                                 {**next(stream), "_channel": ch})
+        loss.item()
+
+    for _ in range(2):                                # warm-up
+        one()
+    builds = []                   # the channel make_train_step builds a step
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        Channel(SSOP(ch["u"], ch["v"]), SketchPlan(ch["bucket"], ch["sign"], z))
+        torch.cuda.synchronize()
+        builds.append((time.time() - t0) * 1e3)
+    build_ms = statistics.median(builds)
+    walls = []
+    for _ in range(n_wall):
+        t0 = time.time()
+        one()
+        walls.append((time.time() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    print(f"profile (olmo-1b, batch 8 x 64, --elsa, one step): wall "
+          f"{wall_ms:.2f} ms without the profiler (steps {walls}), device "
+          f"busy {busy_ms:.2f} ms -> idle share {1 - busy_ms / wall_ms:.1%}, "
+          f"{sum(r[1] for r in rows):.0f} kernels; building the channel "
+          f"(sketch index included) {build_ms:.3f} ms a step (median of 20)")
+    for us, n, key in rows[:15]:
+        print(f"  {us / 1e3:8.3f} ms {us / 1e3 / busy_ms:6.1%}  {n:5.0f}x  "
+              f"{key[:80]}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "train_trace.json"))
+    ours = {k: sum(us for us, _, key in rows if k in key) / 1e3
+            for k in ("lora_matmul", "ssop", "sketch_scatter",
+                      "sketch_gather")}
+    del params, lora, state
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, walls_ms=walls, device_busy_ms=busy_ms,
+                channel_build_ms=build_ms,
+                idle_share=1 - busy_ms / wall_ms,
+                kernels=sum(r[1] for r in rows),
+                our_kernels_ms=ours,
+                top_kernels=[dict(ms=us / 1e3, count=n, name=key)
+                             for us, n, key in rows[:15]])
+
+
+def build_phase():
+    """The three libraries, one nvcc each, started together."""
+    t0 = time.time()
+    libs = (lora_ops.library, ssop_ops.library, cs_ops.library)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib) for lib in libs]:
+            f.result()
+    print(f"built and loaded 3 kernel libraries in {time.time() - t0:.1f}s")
+
+
+def _record_row(name, source, replaces, launches, row):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
 def main():
     with phase("1 device"):
         smi = device_phase()
     with phase("2 build"):
-        t0 = time.time()
-        lora_ops.library()
-        print(f"built and loaded the lora_matmul library in "
-              f"{time.time() - t0:.1f}s")
+        build_phase()
     with phase("3 kernel against plain version"):
         rows = kernel_phase()
+    with phase("3b channel kernels against plain versions"):
+        ch_rows = channel_kernel_phase()
     with phase("init full llama3-8b"):
         cfg = get_config("llama3-8b")
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -403,24 +887,62 @@ def main():
     with phase("4 full-width parity"):
         parity_phase(params)
     with phase("5 serving"):
-        serving, launches = serving_phase(cfg, params)
+        serving, serve_launches = serving_phase(cfg, params)
     with phase("6 profile"):
         prof = profile_phase(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    with phase("7 training parity"):
+        t_parity = train_parity_phase()
+    with phase("8 training"):
+        training, train_launches = train_phase()
+    with phase("9 training profile"):
+        t_prof = train_profile_phase()
+
+    def pick(kernel, op):
+        return next(r for r in ch_rows if r["kernel"] == kernel
+                    and r["op"] == op and r["case"] == "train"
+                    and r["dtype"] == "bfloat16")
 
     q = next(r for r in rows if r["shape"] == "q" and r["dtype"] == "bfloat16")
-    record = {"kernels": [{
-        "name": "lora_matmul", "route": "cuda",
-        "source": "src/repro_torch/csrc/lora_matmul.cu",
-        "replaces": "src/repro/kernels/lora/kernel.py:58",
-        "launches": launches, "max_abs_err": q["max_abs_err"],
-        "ms": q["ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
-        "bound_by": q["bound_by"], "library_ms": q["library_ms"],
-        "shape": "T=8 K=4096 O=4096 r=16 bfloat16 (q projection)",
-    }]}
+    t512 = next(r for r in rows if r["shape"] == "train"
+                and r["dtype"] == "bfloat16")
+    lora = _record_row("lora_matmul", "src/repro_torch/csrc/lora_matmul.cu",
+                       "src/repro/kernels/lora/kernel.py:58",
+                       serve_launches + train_launches["lora_matmul"], q)
+    lora.update(shape="T=8 K=4096 O=4096 r=16 bfloat16 (q projection)",
+                launches_by_path={"serve": serve_launches,
+                                  "train": train_launches["lora_matmul"]},
+                at_train_shape={k: t512[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err")} | {"shape": "T=512 K=2048 O=2048 r=16 "
+                                                "bfloat16"})
+    kernels = [lora]
+    for name, src, repl, fwd, bwd in (
+            ("ssop_apply", "src/repro_torch/csrc/ssop.cu",
+             "src/repro/kernels/ssop/kernel.py:40", "ssop forward",
+             "ssop backward"),
+            ("sketch_scatter", "src/repro_torch/csrc/count_sketch.cu",
+             "src/repro/kernels/count_sketch/kernel.py:56", "compress",
+             "median backward"),
+            ("sketch_gather", "src/repro_torch/csrc/count_sketch.cu",
+             "src/repro/kernels/count_sketch/kernel.py:107", "decompress",
+             "compress backward")):
+        row = _record_row(name, src, repl, train_launches[name],
+                          pick(name, fwd))
+        b = pick(name, bwd)
+        row.update(shape=f"{fwd}, T=512 D=2048 r=16 Y=3 Z=325 bfloat16",
+                   backward={k: b[k] for k in (
+                       "ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by", "max_abs_err")} | {"op": bwd})
+        kernels.append(row)
+    record = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "lora_shapes": rows, "serving": serving,
-                   "profile": prof, **record}, f, indent=1)
+        json.dump({"card": smi, "lora_shapes": rows, "channel_shapes": ch_rows,
+                   "serving": serving, "profile": prof,
+                   "train_parity": t_parity, "training": training,
+                   "train_profile": t_prof, **record}, f, indent=1)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

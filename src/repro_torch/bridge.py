@@ -10,6 +10,12 @@ a list with one dict per layer.  So the mapping is by path:
 - ``frozen["blocks"][k1]...[i]`` (layer ``i`` of the stacked leaf) ->
   ``frozen["blocks"][i][k1]...``; likewise for ``lora``.
 
+Non-parametric norms (olmo-1b's ``ln1``/``ln2``/``final_norm``) are empty
+dicts and cross as empty dicts; a tied-embedding model has no ``head``.
+The ELSA channel's parameters (``u``, ``v``, ``bucket``, ``sign``) and an
+AdamW state (``step``, and ``m``/``v`` shaped like the LoRA tree) cross the
+same way.
+
 bfloat16 numpy arrays (ml_dtypes) cross as their 16-bit patterns, so
 nothing is rounded on the way.
 """
@@ -44,8 +50,14 @@ def _unstack(tree, i):
 
 
 def _n_layers(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
+    """The leading (layer) axis of the first array leaf; empty dicts, such
+    as a non-parametric norm's, hold none."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            n = _n_layers(v)
+            if n is not None:
+                return n
+        return None
     return np.asarray(tree).shape[0]
 
 
@@ -93,14 +105,33 @@ def _stack(layers):
     return np.stack(layers)
 
 
+def _to_jax(tree):
+    return {k: (_stack([_tree_to_numpy(layer) for layer in v])
+                if k == "blocks" else _tree_to_numpy(v))
+            for k, v in tree.items()}
+
+
 def params_to_jax_numpy(params):
     """The inverse of :func:`params_from_jax_numpy`: the port's parameters
     -> ``(frozen_np, lora_np)`` in the JAX package's layout."""
-    out = []
-    for name in ("frozen", "lora"):
-        tree = {}
-        for k, v in params[name].items():
-            tree[k] = (_stack([_tree_to_numpy(layer) for layer in v])
-                       if k == "blocks" else _tree_to_numpy(v))
-        out.append(tree)
-    return tuple(out)
+    return _to_jax(params["frozen"]), _to_jax(params["lora"])
+
+
+def channel_from_jax_numpy(channel_np, device="cuda"):
+    """The JAX launcher's ``_channel`` dict (u, v, bucket, sign as numpy
+    arrays) -> tensors on ``device`` with the same dtypes."""
+    return _tree_to_torch(channel_np, device, None)
+
+
+def opt_state_from_jax_numpy(state_np, device="cuda"):
+    """The JAX package's AdamW state ``{"step", "m", "v"}`` (``m``/``v``
+    shaped like its LoRA tree) -> the port's, with ``blocks`` as a list."""
+    return {"step": _to_torch(state_np["step"], device, None),
+            "m": _from_jax(state_np["m"], device, None),
+            "v": _from_jax(state_np["v"], device, None)}
+
+
+def opt_state_to_jax_numpy(state):
+    """The inverse of :func:`opt_state_from_jax_numpy`."""
+    return {"step": _to_numpy(state["step"]), "m": _to_jax(state["m"]),
+            "v": _to_jax(state["v"])}

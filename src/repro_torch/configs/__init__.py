@@ -7,10 +7,11 @@ the ROADMAP queue that brings it over.
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, InputShape, INPUT_SHAPES  # noqa: F401
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import llama3_8b, olmo_1b
 
 REGISTRY = {
     "llama3-8b": llama3_8b.CONFIG,
+    "olmo-1b": olmo_1b.CONFIG,
 }
 
 ASSIGNED = list(REGISTRY)

@@ -1,0 +1,191 @@
+"""Wrappers of the count-sketch kernels: compress (a signed scatter by
+bucket) and median decode (a signed gather and the median over the hash
+rows), each a ``torch.autograd.Function`` whose backward is the other
+kernel in its second mode:
+
+- :func:`sketch_compress` forward is the scatter kernel, its backward the
+  gather kernel summing over y;
+- :func:`sketch_decompress` forward is the gather kernel with the median,
+  its backward the scatter kernel weighting each feature by the median's
+  routing, recomputed from the saved sketch (nothing of size T x Y x D is
+  saved).
+
+The raw ops :func:`sketch_scatter` and :func:`sketch_gather` send a CPU
+tensor to the plain versions (``ref.py``) and launch the kernels of
+``csrc/count_sketch.cu`` on a CUDA tensor, or raise; they carry no gradient.
+Their ``launches`` attributes count kernel launches.
+
+A plan is any object with ``bucket`` (Y, D) int32, ``sign`` (Y, D) float32,
+``z`` and the inverse index ``ptr`` (Y Z + 1,) / ``idx`` (Y D,) int32 that
+:class:`repro_torch.core.sketch.SketchPlan` builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.count_sketch.ref import (compress_ref, decompress_ref,
+                                                  gather_sum_ref,
+                                                  median_backward_ref)
+
+MAX_Y = 8
+ROWS_PER_BLOCK = 4                   # csrc/count_sketch.cu kRows
+MAX_SHARED_BYTES = 232448            # per block on sm_90
+_SOURCES = ("count_sketch.cu",)
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {}
+for _t in ("bf16", "f32"):
+    _SIGNATURES[f"sketch_scatter_{_t}"] = ([_V] * 7 + [_I] * 5 + [_V], _I)
+    _SIGNATURES[f"sketch_gather_{_t}"] = ([_V] * 4 + [_I] * 5 + [_V], _I)
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    return _build.load("count_sketch", _SOURCES, _SIGNATURES)
+
+
+def _plan_shapes(plan):
+    Y, D = plan.bucket.shape
+    return Y, D, plan.z
+
+
+def sketch_scatter(x, plan, u=None):
+    """Compress x (..., D) -> (..., Y, Z); with ``u`` (..., Y, Z), the
+    median decode's backward instead: x is the gradient of the decoded
+    (..., D) estimate of ``u``.  No gradient."""
+    Y, D, Z = _plan_shapes(plan)
+    if x.shape[-1] != D or (u is not None
+                            and u.shape != x.shape[:-1] + (Y, Z)):
+        raise ValueError(f"sketch_scatter shapes: x {tuple(x.shape)}, u "
+                         f"{None if u is None else tuple(u.shape)}, plan "
+                         f"Y={Y} D={D} Z={Z}")
+    if x.device.type == "cpu":
+        if u is None:
+            return compress_ref(x, plan.bucket, plan.sign, Z)
+        return median_backward_ref(x, u, plan.bucket, plan.sign)
+    out = torch.empty(x.shape[:-1] + (Y, Z), dtype=x.dtype, device=x.device)
+    if _launch("scatter", x, u, plan, out, math.prod(x.shape[:-1])):
+        sketch_scatter.launches += 1
+    return out
+
+
+sketch_scatter.launches = 0
+
+
+def sketch_gather(u, plan, *, median: bool = True):
+    """u (..., Y, Z) -> (..., D): the median decode, or with
+    ``median=False`` the sum over y (compress's backward).  No gradient."""
+    Y, D, Z = _plan_shapes(plan)
+    if u.shape[-2:] != (Y, Z):
+        raise ValueError(f"sketch_gather shapes: u {tuple(u.shape)}, plan "
+                         f"Y={Y} D={D} Z={Z}")
+    if u.device.type == "cpu":
+        if median:
+            return decompress_ref(u, plan.bucket, plan.sign)
+        return gather_sum_ref(u, plan.bucket, plan.sign)
+    out = torch.empty(u.shape[:-2] + (D,), dtype=u.dtype, device=u.device)
+    if _launch("gather", u, None, plan, out, math.prod(u.shape[:-2]),
+               mode=0 if median else 1):
+        sketch_gather.launches += 1
+    return out
+
+
+sketch_gather.launches = 0
+
+
+def _launch(kind, x, u, plan, out, n_rows: int, mode=0) -> bool:
+    """Check the operands and launch the kernel over ``n_rows`` rows (of
+    D features for the scatter's input, of Y x Z for the gather's) into
+    ``out``; returns whether it launched (no rows launch nothing)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"sketch_{kind}: no kernel for device {x.device}")
+    suffix = _SUFFIX.get(x.dtype)
+    if suffix is None:
+        raise TypeError(f"sketch_{kind} kernel takes bf16 or f32, got "
+                        f"{x.dtype}")
+    Y, D, Z = _plan_shapes(plan)
+    if not 1 <= Y <= MAX_Y:
+        raise ValueError(f"sketch_{kind} kernel takes 1 <= Y <= {MAX_Y}, "
+                         f"got {Y}")
+    if u is not None and (u.dtype != x.dtype or u.device != x.device):
+        raise TypeError(f"sketch_{kind}: u is {u.dtype} on {u.device}, x "
+                        f"is {x.dtype} on {x.device}")
+    wants = (("bucket", plan.bucket, torch.int32),
+             ("sign", plan.sign, torch.float32),
+             ("ptr", plan.ptr, torch.int32), ("idx", plan.idx, torch.int32))
+    for name, t, dtype in wants:
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+            raise TypeError(f"sketch_{kind}: plan.{name} must be contiguous "
+                            f"{dtype} on {x.device}, got {t.dtype} on "
+                            f"{t.device}")
+    floats = ({"scatter": D + (Y * Z if u is not None else 0),
+               "gather": Y * Z}[kind])
+    if ROWS_PER_BLOCK * floats * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"sketch_{kind}: D={D}, Y*Z={Y * Z} need more "
+                         f"shared memory than a block has")
+    xc = x.contiguous()
+    if n_rows == 0:
+        return False
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if kind == "scatter":
+            uc = u.contiguous() if u is not None else None
+            err = getattr(lib, f"sketch_scatter_{suffix}")(
+                xc.data_ptr(), None if uc is None else uc.data_ptr(),
+                plan.ptr.data_ptr(), plan.idx.data_ptr(),
+                plan.sign.data_ptr(), plan.bucket.data_ptr(), out.data_ptr(),
+                n_rows, D, Y, Z, 0 if u is None else 1, stream)
+        else:
+            err = getattr(lib, f"sketch_gather_{suffix}")(
+                xc.data_ptr(), plan.bucket.data_ptr(), plan.sign.data_ptr(),
+                out.data_ptr(), n_rows, D, Y, Z, mode, stream)
+    if err != 0:
+        raise RuntimeError(f"sketch_{kind} kernel launch failed: CUDA error "
+                           f"{err} (rows={n_rows}, D={D}, Y={Y}, Z={Z}, "
+                           f"{x.dtype})")
+    return True
+
+
+class CompressFunction(torch.autograd.Function):
+    """h (..., D) -> sketch (..., Y, Z); backward: the signed gather-sum."""
+
+    @staticmethod
+    def forward(ctx, h, plan):
+        ctx.plan = plan
+        return sketch_scatter(h, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sketch_gather(g, ctx.plan, median=False), None
+
+
+class DecompressFunction(torch.autograd.Function):
+    """sketch (..., Y, Z) -> median estimate (..., D); backward: the
+    median-weighted signed scatter."""
+
+    @staticmethod
+    def forward(ctx, u, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(u)
+        return sketch_gather(u, plan, median=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        return sketch_scatter(g, ctx.plan, u=u), None
+
+
+def sketch_compress(h, plan):
+    """h: (..., D) -> (..., Y, Z), in h's dtype."""
+    return CompressFunction.apply(h, plan)
+
+
+def sketch_decompress(u, plan):
+    """u: (..., Y, Z) -> (..., D) median estimates, in u's dtype."""
+    return DecompressFunction.apply(u, plan)

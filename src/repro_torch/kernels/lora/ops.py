@@ -4,6 +4,13 @@ A CPU tensor goes to the plain version (:func:`lora_matmul_ref`); a CUDA
 tensor launches the hand-written kernel ``csrc/lora_matmul.cu`` or raises.
 There is no fallback from the kernel to the plain version.
 
+The projection is a ``torch.autograd.Function``.  W is frozen (no dW); the
+backward computes ``dx = g Wᵀ + s (g Bᵀ) Aᵀ``, ``dA = s xᵀ (g Bᵀ)`` and
+``dB = s (x A)ᵀ g`` as plain ``torch.matmul`` products: the JAX package
+has no backward kernel for LoRA and leaves these products to XLA, so they
+are plain products here too (a hand-written backward is in ROADMAP.md's
+perf queue).
+
 ``lora_matmul.launches`` counts kernel launches (never plain-version
 calls), so a run can show that its projections went through the kernel.
 """
@@ -42,12 +49,41 @@ def lora_matmul(x, w, a, b, scale: float):
         raise ValueError(f"lora_matmul shapes: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}")
-    if x.device.type == "cpu":
-        return lora_matmul_ref(x, w, a, b, scale)
-    return _launch(x, w, a, b, scale)
+    return LoRAMatmulFunction.apply(x, w, a, b, float(scale))
 
 
 lora_matmul.launches = 0
+
+
+class LoRAMatmulFunction(torch.autograd.Function):
+    """``x W + s (x A) B`` with gradients for x, A and B (W is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, scale):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scale = scale
+        if x.device.type == "cpu":
+            return lora_matmul_ref(x, w, a, b, scale)
+        return _launch(x, w, a, b, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "lora_matmul: W is a frozen weight and gets no gradient")
+        K, O = w.shape
+        x2, g2 = x.reshape(-1, K), g.reshape(-1, O)
+        gs = g2 * ctx.scale                               # (T, O)
+        gb = gs @ b.T                                     # (T, r)
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ w.T + gb @ a.T).reshape(x.shape)
+        if ctx.needs_input_grad[2]:
+            da = x2.T @ gb
+        if ctx.needs_input_grad[3]:
+            db = (x2 @ a).T @ gs
+        return dx, None, da, db, None
 
 
 def _launch(x, w, a, b, scale: float):

@@ -6,8 +6,11 @@ same layouts at every public function (``wq`` is (D, H, hd), ``wo`` is
 (H, hd, D), activations are (B, S, H, hd)) so that tests compare like with
 like.  The q/k/v/o projections go through the fused LoRA wrapper
 (:func:`repro_torch.kernels.lora.ops.lora_matmul`): on a CUDA tensor that
-is the hand-written kernel.  The chunked attention's memory-lean custom
-backward (the training path) waits for the training slice.
+is the hand-written kernel.  Training differentiates the chunked
+attention by autograd through its online-softmax loop, which gives the
+gradient of the JAX package's custom VJP ``_chunked_attn``; that VJP's
+memory-lean backward, and the flash-attention kernel, are still to port
+(ROADMAP.md, queue 2).
 """
 from __future__ import annotations
 
@@ -221,8 +224,8 @@ def _chunked_attn_fwd_core(qr, ks, vs, kpos_chunks, q_pos, *, causal,
 
 
 def gqa_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                  kv_offset=0, kv_valid=None, chunk=2048, scale=None,
-                  k_positions=None):
+                  kv_offset=0, kv_valid=None, chunk=2048, use_flash=False,
+                  scale=None, k_positions=None):
     """Grouped-query attention with online-softmax kv chunking.
 
     q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh).  ``q_offset`` is the absolute
@@ -231,6 +234,11 @@ def gqa_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     Never materializes an (Sq, Sk) tensor when Sk > chunk.  The products
     are plain ``torch.einsum``: the JAX package leaves them to XLA too.
     """
+    if use_flash:
+        raise NotImplementedError(
+            "use_flash: the flash-attention kernel "
+            "(repro/kernels/flash_attention) is not ported yet (ROADMAP.md, "
+            "queue 2: TPU kernels to port, flash attention)")
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -281,11 +289,12 @@ def apply_mlp(cfg, p, x, d_ff: Optional[int] = None):
 # self-attention sublayer
 # ---------------------------------------------------------------------------
 
-def attn_apply(cfg, p, lp, x, *, positions, cache, window=0, chunk=2048):
-    """Self-attention sublayer of a decode step: k/v are written at the
+def attn_apply(cfg, p, lp, x, *, positions, cache=None, window=0,
+               causal=True, chunk=2048):
+    """Self-attention sublayer.  Without ``cache`` (train/prefill):
+    attention over the sequence itself, positions from 0; returns
+    ``(out, None)``.  With ``cache`` (decode): k/v are written at the
     cursor ``cache["len"]`` (a host int) and attention runs over the cache.
-    (The JAX package's cache-free train/prefill form comes with the
-    training slices.)
 
     The cache's ``k``/``v`` (and ring ``pos``) tensors are updated IN PLACE,
     where the JAX package returns updated copies: the returned cache holds
@@ -298,6 +307,10 @@ def attn_apply(cfg, p, lp, x, *, positions, cache, window=0, chunk=2048):
     if cfg.max_position_embeddings == 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        o = gqa_attention(q, k, v, causal=causal, window=window, q_offset=0,
+                          chunk=chunk)
+        return out_project(p, lp, o, x, ls), None
     ck, cv, cur = cache["k"], cache["v"], cache["len"]
     S = q.shape[1]
     ring = "pos" in cache          # windowed ring-buffer cache

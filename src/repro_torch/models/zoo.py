@@ -1,13 +1,15 @@
 """Model-zoo interface of the port: :func:`get_model` gives a family's
-``specs``, ``cache_specs`` and ``decode_step``.
+``specs``, ``forward``, ``cache_specs`` and ``decode_step``, and the losses
+(:func:`loss_fn`, :func:`per_example_ce`, :func:`classification_loss`).
 
 The counterpart of the JAX package's ``repro/models/zoo.py`` for the dense
-family.  Its ``forward`` (training/prefill) and every other family wait for
-later slices (ROADMAP.md, queue 1).
+family.  Every other family waits for later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
@@ -15,8 +17,13 @@ from repro_torch.models import transformer
 
 class Model(NamedTuple):
     specs: Callable              # cfg -> {'frozen': SpecTree, 'lora': SpecTree}
+    forward: Callable            # (cfg, frozen, lora, batch, **opts)
     cache_specs: Callable        # (cfg, batch, seq_len) -> SpecTree
     decode_step: Callable        # (cfg, frozen, lora, cache, batch, **opts)
+
+
+def _lm_forward(cfg, frozen, lora, batch, **opts):
+    return transformer.lm_forward(cfg, frozen, lora, batch["tokens"], **opts)
 
 
 def _lm_decode(cfg, frozen, lora, cache, batch, **opts):
@@ -25,8 +32,8 @@ def _lm_decode(cfg, frozen, lora, cache, batch, **opts):
 
 
 _FAMILIES = {
-    "dense": Model(transformer.lm_specs, transformer.lm_cache_specs,
-                   _lm_decode),
+    "dense": Model(transformer.lm_specs, _lm_forward,
+                   transformer.lm_cache_specs, _lm_decode),
 }
 
 
@@ -36,3 +43,36 @@ def get_model(cfg: ArchConfig) -> Model:
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
             f"queue 1: modules to port)")
     return _FAMILIES[cfg.family]
+
+
+def loss_fn(cfg: ArchConfig, logits, tokens, aux=None):
+    """Next-token cross entropy with padded-vocab masking: the columns past
+    ``vocab_size`` get -1e30 before the logsumexp.  In float32, as the JAX
+    package's ``loss_fn`` is."""
+    V = cfg.vocab_size
+    logits = logits[:, :-1, :].to(torch.float32)
+    targets = tokens[:, 1:].long()
+    vp = logits.shape[-1]
+    if vp > V:
+        neg = torch.where(torch.arange(vp, device=logits.device) < V,
+                          0.0, -1e30).to(torch.float32)
+        logits = logits + neg
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    if aux is not None:
+        loss = loss + aux.to(torch.float32)
+    return loss
+
+
+def per_example_ce(logits, labels):
+    """Per-example cross-entropy (..., C) -> (...); accumulates in at
+    least f32 (f64 stays f64 for x64 parity runs)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def classification_loss(logits, labels):
+    return torch.mean(per_example_ce(logits, labels))

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain versions, on the card.
+"""The hand-written CUDA kernels (the LoRA projection, SS-OP and the count
+sketch, forward and backward) against their plain versions, on the card.
 
 Marked ``cuda``: each test skips, with its reason, where there is no CUDA
 device.  On a machine with an H100 and nvcc:
@@ -8,8 +9,13 @@ device.  On a machine with an H100 and nvcc:
 import pytest
 import torch
 
+from repro_torch.core.sketch import SketchPlan, make_plan
+from repro_torch.kernels.count_sketch import ops as cs_ops
+from repro_torch.kernels.count_sketch import ref as cs_ref
 from repro_torch.kernels.lora import ops
 from repro_torch.kernels.lora.ref import lora_matmul_ref
+from repro_torch.kernels.ssop import ops as ssop_ops
+from repro_torch.kernels.ssop.ref import ssop_apply_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -69,3 +75,135 @@ def test_lora_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.lora_matmul(x, w.T.contiguous().T, a[:, :4].contiguous(),
                         b[:4], 1.0)
+
+
+def test_lora_kernel_backward_matches_plain(cuda):
+    """Forward through the kernel, backward by the Function's products,
+    against autograd through the plain version (f32: 1e-5 of the scale)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(64, 256, generator=g, device=cuda)
+    w = torch.randn(256, 128, generator=g, device=cuda) / 16
+    a = torch.randn(256, 8, generator=g, device=cuda) / 16
+    b = torch.randn(8, 128, generator=g, device=cuda)
+    gy = torch.randn(64, 128, generator=g, device=cuda)
+    got, want = [], []
+    for fn, out in ((ops.lora_matmul, got), (lora_matmul_ref, want)):
+        xs, as_, bs = (t.clone().requires_grad_(True) for t in (x, a, b))
+        fn(xs, w, as_, bs, 2.0).backward(gy)
+        out += [xs.grad, as_.grad, bs.grad]
+    for p, q in zip(got, want):
+        assert (p - q).abs().max() <= 1e-5 * q.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# SS-OP and count sketch
+# ---------------------------------------------------------------------------
+
+# kernel and plain version both sum in fp32 and round once: f32 differs by
+# summation order (1e-5 of the output's scale), bf16 by at most one
+# rounding of an output (held to 2^-7 of the scale)
+_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _close(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[dtype] * want.float().abs().max().item(), err
+
+
+# (T, D, r): the training shape, ragged T and D, r = 64, r not a multiple
+# of the 16-column strip
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(512, 2048, 16), (5, 2000, 16),
+                                   (3, 64, 64), (7, 300, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssop_kernel_and_backward_match_plain(cuda, shape, dtype):
+    T, D, r = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    u = torch.linalg.qr(torch.randn(D, r, generator=g, device=cuda))[0]
+    v = torch.linalg.qr(torch.randn(r, r, generator=g, device=cuda))[0]
+    w = (v.T - torch.eye(r, device=cuda)).to(dtype)
+    u = u.to(dtype).contiguous()
+    before = ssop_ops.ssop_apply_td.launches
+    y = ssop_ops.ssop_apply_td(h, u, w)
+    torch.cuda.synchronize()
+    assert ssop_ops.ssop_apply_td.launches == before + 1
+    _close(y, ssop_apply_ref(h, u, w), dtype)
+    gy = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    hs = h.clone().requires_grad_(True)
+    ssop_ops.SSOPFunction.apply(hs, u, w).backward(gy)
+    assert ssop_ops.ssop_apply_td.launches == before + 3
+    _close(hs.grad, ssop_apply_ref(gy, u, w.T), dtype)
+
+
+# (T, D, Y, Z): the training shape, ragged D and Z with an even and an odd
+# Y, Y = 8, 1 and 2
+SKETCH_SHAPES = [(512, 2048, 3, 325), (5, 2000, 4, 37), (5, 2000, 5, 37),
+                 (9, 50, 8, 7), (3, 64, 1, 9), (4, 130, 2, 11)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SKETCH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sketch_kernels_match_plain(cuda, shape, dtype):
+    """compress, decompress (equality: it only gathers and compares), and
+    both backwards, with a quarter of the buckets zeroed so the median
+    meets ties."""
+    T, D, Y, Z = shape
+    plan = make_plan(D, Y, Z, seed=1, device=cuda)
+    b, s = plan.bucket, plan.sign
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    n0 = (cs_ops.sketch_scatter.launches, cs_ops.sketch_gather.launches)
+    _close(cs_ops.sketch_scatter(h, plan), cs_ref.compress_ref(h, b, s, Z),
+           dtype)
+    u = torch.randn(T, Y, Z, generator=g, device=cuda).to(dtype)
+    u[:, :, :max(1, Z // 4)] = 0
+    got = cs_ops.sketch_gather(u, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cs_ref.decompress_ref(u, b, s))
+    _close(cs_ops.sketch_gather(u, plan, median=False),
+           cs_ref.gather_sum_ref(u, b, s), dtype)
+    gy = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    _close(cs_ops.sketch_scatter(gy, plan, u=u),
+           cs_ref.median_backward_ref(gy, u, b, s), dtype)
+    torch.cuda.synchronize()
+    assert (cs_ops.sketch_scatter.launches, cs_ops.sketch_gather.launches) \
+        == (n0[0] + 2, n0[1] + 2)
+
+
+def test_sketch_autograd_launches_kernels_both_ways(cuda):
+    plan = make_plan(256, 3, 40, device=cuda)
+    h = torch.randn(2, 3, 256, device=cuda, requires_grad=True)
+    n0 = (cs_ops.sketch_scatter.launches, cs_ops.sketch_gather.launches)
+    out = cs_ops.sketch_decompress(cs_ops.sketch_compress(h, plan), plan)
+    out.backward(torch.ones_like(out))
+    assert (cs_ops.sketch_scatter.launches, cs_ops.sketch_gather.launches) \
+        == (n0[0] + 2, n0[1] + 2)
+    hp = h.detach().clone().requires_grad_(True)
+    sk = cs_ref.compress_ref(hp, plan.bucket, plan.sign, 40)
+    cs_ref.decompress_ref(sk, plan.bucket, plan.sign).backward(
+        torch.ones_like(out))
+    assert (h.grad - hp.grad).abs().max() <= 1e-5 * hp.grad.abs().max()
+
+
+def test_sketch_kernels_reject_what_they_do_not_take(cuda):
+    plan = make_plan(64, 9, 8, device=cuda)
+    with pytest.raises(ValueError, match="Y"):
+        cs_ops.sketch_scatter(torch.randn(2, 64, device=cuda), plan)
+    plan = make_plan(64, 3, 8, device=cuda)
+    with pytest.raises(TypeError):
+        cs_ops.sketch_gather(torch.randn(2, 3, 8, device=cuda).half(), plan)
+    cpu_plan = SketchPlan(plan.bucket.cpu(), plan.sign.cpu(), 8)
+    with pytest.raises(TypeError, match="plan"):
+        cs_ops.sketch_scatter(torch.randn(2, 64, device=cuda), cpu_plan)
+    big = make_plan(60000, 3, 8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cs_ops.sketch_scatter(torch.randn(1, 60000, device=cuda), big)
+    with pytest.raises(ValueError, match="r <="):
+        ssop_ops.ssop_apply_td(torch.randn(2, 128, device=cuda),
+                               torch.randn(128, 65, device=cuda),
+                               torch.randn(65, 65, device=cuda))
