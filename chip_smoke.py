@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two main paths on one NVIDIA H100 (sm_90a): the
-serving path (full llama3-8b) and LoRA fine-tuning through ELSA's split
-channel (full-width olmo-1b, ``launch/train.py --full --elsa``).
+"""Drive the PyTorch port's three main paths on one NVIDIA H100 (sm_90a):
+the serving path (full llama3-8b), LoRA fine-tuning through ELSA's split
+channel (full-width olmo-1b, ``launch/train.py --full --elsa``), and one
+ELSA federation of full-width bert-base
+(``Federation(..., backend="reference").run("elsa")``).
 
     python3 chip_smoke.py
 
@@ -9,7 +11,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 
 1. device: the card's name and power limit, compute capability (9, 0);
    TF32 off for matmuls and cuDNN;
-2. build: the three kernel libraries from ``src/repro_torch/csrc``, one nvcc
+2. build: the four kernel libraries from ``src/repro_torch/csrc``, one nvcc
    per source, all started together;
 3. the LoRA kernel against its plain version at llama3-8b's decode shapes,
    one ragged shape and olmo-1b's training shape (T 512), in bf16 and f32,
@@ -17,6 +19,12 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
    against their plain versions, forward and backward, at the training
    shapes and ragged ones, in bf16 and f32, with times and bounds;
+3c. flash attention against its plain version, forward (o, m, l) and
+   gradient (the Function against autograd through the plain version), at
+   bert-base's and olmo-1b's shapes, ragged lengths, GQA at llama3-8b's
+   ratio, a window and S 4096 (with the peak memory of its forward and
+   backward), with times, bounds and ``scaled_dot_product_attention`` as
+   the library yardstick;
 4. full-width parity: llama3-8b decode steps, kernel path against plain path
    on the same weights (f32 at 2 layers, bf16 at full depth);
 5. serving: full llama3-8b (32 layers, bf16, random weights from a seed) in
@@ -31,7 +39,15 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    layers, bf16, ``--elsa``) for 20 steps of its batch stream; the loss must
    fall and each kernel's launches per step must be what the path implies;
 9. where a training step's time goes: ``torch.profiler`` over one step, and
-   what building the channel each step costs.
+   what building the channel each step costs;
+10. the federation: full-width bert-base (12 layers, f32, random weights
+   from a seed) registered as ``"bert-base-full"``, 8 clients on 2 edges,
+   ``run("elsa")`` for 2 rounds of 4 local steps; the losses must be
+   finite and each client step must launch each kernel the number of
+   times its split implies (flash 12, one per block);
+10b. split-training parity: one ``split_loss`` gradient of bert-base at
+   full width (f32, 4 layers) through the channel, kernel path against
+   plain path, each block against its own f32-vs-f64 floor.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -60,8 +76,11 @@ from repro_torch.core.sketch import (SketchPlan, make_plan,  # noqa: E402
                                      selection_matrices)
 from repro_torch.core.split_training import Channel  # noqa: E402
 from repro_torch.core.ssop import SSOP  # noqa: E402
+from repro_torch.federation import FedConfig, Federation  # noqa: E402
 from repro_torch.kernels.count_sketch import ops as cs_ops  # noqa: E402
 from repro_torch.kernels.count_sketch import ref as cs_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.lora import ops as lora_ops  # noqa: E402
 from repro_torch.kernels.lora.ref import lora_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssop import ops as ssop_ops  # noqa: E402
@@ -69,6 +88,9 @@ from repro_torch.kernels.ssop.ref import ssop_apply_ref  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.train import make_serve_step  # noqa: E402
 from repro_torch.models import common, zoo  # noqa: E402
+from repro_torch.models.split_api import (BertSplitModel,  # noqa: E402
+                                          get_split_model,
+                                          register_split_model)
 from repro_torch.models.params import init_tree  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
@@ -366,6 +388,162 @@ def _wrapper(kernel):
 
 
 # ---------------------------------------------------------------------------
+# 3c. flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+# (case, B, S, H, KV, Dh, dtype, causal, window)
+FLASH_CASES = [
+    ("bert-base", 16, 128, 12, 12, 64, torch.float32, False, 0),
+    ("olmo-1b", 8, 64, 16, 16, 128, torch.bfloat16, True, 0),
+    ("ragged 24", 2, 24, 12, 12, 64, torch.float32, False, 0),
+    ("ragged 100", 2, 100, 16, 16, 128, torch.bfloat16, True, 0),
+    ("ragged 1000", 1, 1000, 12, 12, 64, torch.float32, True, 0),
+    ("gqa llama3-8b", 1, 512, 32, 8, 128, torch.bfloat16, True, 0),
+    ("window 128", 1, 1000, 8, 8, 128, torch.bfloat16, True, 128),
+    ("long 4096", 1, 4096, 8, 8, 128, torch.bfloat16, True, 0),
+]
+
+
+def _attended_pairs(S, causal, window):
+    """Unmasked (query, key) pairs of one head: the work this run's masks
+    leave (a kernel that skips masked tiles need do no more)."""
+    q = np.arange(S)[:, None]
+    k = np.arange(S)[None, :]
+    keep = np.ones((S, S), bool)
+    if causal:
+        keep &= k <= q
+    if window:
+        keep &= k > q - window
+    return int(keep.sum())
+
+
+def _flash_bound(B, S, H, KV, Dh, dtype, causal, window):
+    """Bytes: q and o (B S H Dh), k and v (B S KV Dh) read or written
+    once, m and l (B H S fp32).  Operations: 4 Dh per attended pair and
+    head (q·k and p·v), at the bf16 tensor-core peak for bf16 and the
+    CUDA-core fp32 peak for f32 (the kernel takes no TF32)."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * S * H * Dh + 2 * B * S * KV * Dh) * el + 8 * B * H * S
+    ops = 4 * Dh * B * H * _attended_pairs(S, causal, window)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _sdpa(q, k, v, causal, window):
+    """``torch.nn.functional.scaled_dot_product_attention`` on the same
+    inputs (the library yardstick; the port never calls it)."""
+    mask = None
+    if window:
+        pos = torch.arange(q.shape[1], device=q.device)
+        mask = pos[None] > pos[:, None] - window
+        if causal:
+            mask &= pos[None] <= pos[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def flash_kernel_phase():
+    """The kernel's (o, m, l) against the plain version's on the same
+    inputs: both take fp32 scores and sums and round o once, so f32 is
+    held to 1e-5 and bf16 to 2^-7 of max|o| (summation order; one bf16
+    rounding), m and l to 1e-5.  The Function's gradient (its recomputing
+    backward) against autograd through the plain version: f32 to 1e-4 and
+    bf16 to 2^-6 of the gradient's largest value (it takes Σ dO·O from
+    the rounded o; each gradient is rounded once).  Timed as in phase 3
+    (CUDA graphs, rotating over input copies that exceed L2); the long
+    case also reports the peak memory of the Function's forward and
+    backward against the 512 MiB that its eight fp32 S x S matrices would
+    take."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for case, B, S, H, KV, Dh, dtype, causal, window in FLASH_CASES:
+        def make():
+            return [torch.randn(B, S, n, Dh, generator=gen,
+                                device="cuda").to(dtype) for n in (H, KV, KV)]
+        q, k, v = make()
+        n0 = fa_ops.flash_attention_fwd.launches
+        o, m, l = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window, scale=Dh ** -0.5)
+        torch.cuda.synchronize()
+        check(fa_ops.flash_attention_fwd.launches == n0 + 1,
+              f"flash {case}: the kernel did not launch")
+        ro, rm, rl = attention_ref(q, k, v, causal=causal, window=window)
+        err = (o.float() - ro.float()).abs().max().item()
+        scale = ro.float().abs().max().item()
+        tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+        err_ml = max((m - rm).abs().max().item() / rm.abs().max().item(),
+                     (l - rl).abs().max().item() / rl.abs().max().item())
+        check(o.shape == ro.shape and o.dtype == dtype,
+              f"flash {case}: {tuple(o.shape)} {o.dtype}")
+        check(err <= tol, f"flash {case}: max abs err {err:.3e} > {tol:.3e}")
+        check(err_ml <= 1e-5, f"flash {case}: m/l rel err {err_ml:.3e}")
+        del ro, rm, rl
+
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = torch.autograd.grad(fa_ops.flash_attention(
+            *leaves, causal=causal, window=window), leaves, do)
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(attention_ref(
+            *plain, causal=causal, window=window)[0], plain, do)
+        gtol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        grad_err = 0.0
+        for name, a, b in zip("qkv", got, want):
+            e = (a.float() - b.float()).abs().max().item()
+            sc = b.float().abs().max().item()
+            grad_err = max(grad_err, e / sc)
+            check(e <= gtol * sc, f"flash {case} d{name}: {e:.3e} > "
+                                  f"{gtol * sc:.3e}")
+        del got, want, leaves, plain
+
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v))
+        sets = [(q, k, v)] + [tuple(make()) for _ in range(
+            max(1, -(-2 * L2_BYTES // nbytes)) - 1)]
+        iters = 60 if S * S * H * B <= 2 ** 24 else 10
+        row = dict(case=case, B=B, S=S, H=H, KV=KV, Dh=Dh,
+                   dtype=str(dtype).removeprefix("torch."), causal=causal,
+                   window=window, max_abs_err=err, tol=tol,
+                   ml_rel_err=err_ml, grad_rel_err=grad_err,
+                   grad_peak_mib=peak_mib)
+        row["ms"] = _time_ms(lambda a, b, c: fa_ops.flash_attention_fwd(
+            a, b, c, causal=causal, window=window, scale=Dh ** -0.5),
+            sets, iters=iters)
+        row["plain_ms"] = _time_ms(lambda a, b, c: attention_ref(
+            a, b, c, causal=causal, window=window), sets, iters=iters)
+        row["library_ms"] = _time_ms(
+            lambda a, b, c: _sdpa(a, b, c, causal, window), sets, iters=iters)
+        row["bound_ms"], row["bound_by"] = _flash_bound(
+            B, S, H, KV, Dh, dtype, causal, window)
+        rows.append(row)
+        print(f"flash {case:13s} B={B} S={S} H={H} KV={KV} Dh={Dh} "
+              f"{row['dtype']:8s} {'causal' if causal else 'full':6s} "
+              f"w={window}: err {err:.3e} (tol {tol:.3e}), m/l {err_ml:.1e}, "
+              f"grad {grad_err:.1e} of scale; kernel {row['ms'] * 1e3:.2f} us"
+              f"  plain {row['plain_ms'] * 1e3:.2f} us  sdpa "
+              f"{row['library_ms'] * 1e3:.2f} us  bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})  "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound; fwd+bwd peak "
+              f"{peak_mib:.1f} MiB above the inputs", flush=True)
+        del sets, q, k, v, o, m, l, do
+        torch.cuda.empty_cache()
+    long = rows[-1]
+    full_mib = long["H"] * long["S"] ** 2 * 4 / 2 ** 20
+    print(f"flash long {long['S']}: forward+backward peak "
+          f"{long['grad_peak_mib']:.1f} MiB above the inputs, against "
+          f"{full_mib:.0f} MiB for {long['H']} fp32 S x S matrices")
+    check(long["grad_peak_mib"] < full_mib,
+          "the flash backward kept an S x S matrix")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # 4. full-width parity
 # ---------------------------------------------------------------------------
 
@@ -494,12 +672,44 @@ def serving_phase(cfg, params):
 # 6. where the time goes
 # ---------------------------------------------------------------------------
 
+def _profile_one(one, trace_name, per=1):
+    """``one()`` under ``torch.profiler``: the device time of each kernel
+    as ``[(us, count, name)]`` divided by ``per`` (the steps ``one``
+    runs), largest first, and the device busy time (ms, also per step);
+    prints the top 15 and writes the trace to ``OUT_DIR``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue                                  # CPU ops: no double count
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        rows.append((dev_us / per, ev.count / per, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    for us, n, key in rows[:15]:
+        print(f"  {us / 1e3:8.3f} ms {us / 1e3 / busy_ms:6.1%}  {n:5.0f}x  "
+              f"{key[:80]}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
+    return rows, busy_ms
+
+
+def _our_kernels_ms(rows):
+    return {k: sum(us for us, _, key in rows if k in key) / 1e3
+            for k in ("lora_matmul", "ssop", "sketch_scatter",
+                      "sketch_gather", "flash_fwd")}
+
+
 def profile_phase(cfg, params, n_ticks=8):
     """Where a tick's time goes, at batch 8: ``n_ticks`` greedy decode steps
     timed on the host clock (each ends in a device-to-host copy of the next
     tokens), then the same under ``torch.profiler`` for the device time of
     each kernel.  Idle share = 1 - device busy / unprofiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
     model = zoo.get_model(cfg)
     step = make_serve_step(cfg, window=cfg.sliding_window)
 
@@ -519,28 +729,12 @@ def profile_phase(cfg, params, n_ticks=8):
     t0 = time.time()
     run(fresh())
     wall_ms = (time.time() - t0) * 1e3 / n_ticks
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(fresh())
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue                                  # CPU ops: no double count
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us / n_ticks, ev.count / n_ticks, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
-    print(f"profile ({cfg.name}, batch 8, {n_ticks} ticks): wall "
-          f"{wall_ms:.2f} ms/tick without the profiler, device busy "
+    print(f"profile ({cfg.name}, batch 8, {n_ticks} ticks), per tick:")
+    rows, busy_ms = _profile_one(lambda: run(fresh()), "decode_trace.json",
+                                 per=n_ticks)
+    print(f"  wall {wall_ms:.2f} ms/tick without the profiler, device busy "
           f"{busy_ms:.2f} ms/tick -> idle share {1 - busy_ms / wall_ms:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels/tick")
-    for us, n, key in rows[:12]:
-        print(f"  {us / 1e3:8.3f} ms/tick {us / 1e3 / busy_ms:6.1%}  "
-              f"{n:5.0f}/tick  {key[:80]}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "decode_trace.json"))
     lora_us = sum(us for us, _, key in rows if "lora_matmul" in key)
     return dict(wall_ms_per_tick=wall_ms, device_busy_ms_per_tick=busy_ms,
                 idle_share=1 - busy_ms / wall_ms,
@@ -555,13 +749,15 @@ def profile_phase(cfg, params, n_ticks=8):
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the projections and the channel's four stages through the
-    plain versions, differentiated by autograd (the comparison side of
-    phase 7; the port never does this itself)."""
+    """Route the projections, the attention and the channel's four stages
+    through the plain versions, differentiated by autograd (the comparison
+    side of phases 7 and 10b; the port never does this itself)."""
     st = split_training
-    saved = (common.lora_matmul, st.apply_ssop, st.apply_ssop_inverse,
-             st.compress, st.decompress)
+    saved = (common.lora_matmul, common.flash_attention, st.apply_ssop,
+             st.apply_ssop_inverse, st.compress, st.decompress)
     common.lora_matmul = lora_matmul_ref
+    common.flash_attention = lambda q, k, v, *, causal, window, scale: \
+        attention_ref(q, k, v, causal=causal, window=window, scale=scale)[0]
     eye = lambda v: torch.eye(v.shape[0], dtype=v.dtype, device=v.device)
     st.apply_ssop = lambda h, op: ssop_apply_ref(
         h, op.u.to(h.dtype), (op.v.T - eye(op.v)).to(h.dtype))
@@ -574,31 +770,36 @@ def plain_path():
     try:
         yield
     finally:
-        (common.lora_matmul, st.apply_ssop, st.apply_ssop_inverse,
-         st.compress, st.decompress) = saved
+        (common.lora_matmul, common.flash_attention, st.apply_ssop,
+         st.apply_ssop_inverse, st.compress, st.decompress) = saved
 
 
 def _counts():
     return {"ssop_apply": ssop_ops.ssop_apply_td.launches,
             "sketch_scatter": cs_ops.sketch_scatter.launches,
             "sketch_gather": cs_ops.sketch_gather.launches,
-            "lora_matmul": lora_ops.lora_matmul.launches}
+            "lora_matmul": lora_ops.lora_matmul.launches,
+            "flash_attention": fa_ops.flash_attention_fwd.launches}
 
 
 def _zero_counts():
     ssop_ops.ssop_apply_td.launches = 0
     cs_ops.sketch_scatter.launches = cs_ops.sketch_gather.launches = 0
     lora_ops.lora_matmul.launches = 0
+    fa_ops.flash_attention_fwd.launches = 0
 
 
-def _per_step(cfg):
+def _per_step(n_layers, remat):
     """Launches one training step through the channel implies: per cut,
     SS-OP and its inverse forward and backward (4), compress's scatter and
     the median backward's scatter (2), decompress's gather and compress
-    backward's gather (2); LoRA 4 projections a layer, once forward and once
-    more when the checkpointed blocks are recomputed for the backward."""
+    backward's gather (2); per layer 4 LoRA projections and one flash
+    attention forward (their backwards are plain products), once more when
+    checkpointed blocks are recomputed for the backward (``remat``)."""
+    passes = 2 if remat else 1
     return {"ssop_apply": 8, "sketch_scatter": 4, "sketch_gather": 4,
-            "lora_matmul": 2 * 4 * cfg.num_layers}
+            "lora_matmul": passes * 4 * n_layers,
+            "flash_attention": passes * n_layers}
 
 
 def _max_abs(tree_a, tree_b=None):
@@ -639,7 +840,8 @@ def _train_parity(qk_scale, checked):
     _zero_counts()
     k_new, k_m, k_loss = run(cfg, params)
     counts = _counts()
-    check(counts == _per_step(cfg), f"kernel path launches {counts}")
+    check(counts == _per_step(cfg.num_layers, remat=True),
+          f"kernel path launches {counts}")
     with plain_path():
         p_new, p_m, p_loss = run(cfg, params)
         cfg64 = cfg.with_(param_dtype="float64", activation_dtype="float64")
@@ -752,7 +954,8 @@ def train_phase(steps=20):
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     check(last < first, f"loss did not fall: first 5 {first:.4f}, last 5 "
                         f"{last:.4f}")
-    want = {k: steps * v for k, v in _per_step(cfg).items()}
+    want = {k: steps * v for k, v in
+            _per_step(cfg.num_layers, remat=True).items()}
     check(counts == want, f"launches {counts} != {want}")
     step_s = statistics.median(out["step_s"][1:])
     tokens = 8 * 64
@@ -765,7 +968,9 @@ def train_phase(steps=20):
     return dict(steps=steps, losses=losses, step_ms=step_s * 1e3,
                 first_step_ms=out["step_s"][0] * 1e3,
                 tokens_per_s=tokens / step_s, peak_gib=peak,
-                launches=counts), counts
+                launches=counts,
+                launches_per_step={k: v // steps for k, v in counts.items()}
+                ), counts
 
 
 # ---------------------------------------------------------------------------
@@ -777,7 +982,6 @@ def train_profile_phase(n_wall=5):
     ``torch.profiler`` for the device time of each kernel; the wall time is
     the median of ``n_wall`` unprofiled steps, each ending in a sync.  Idle
     share = 1 - device busy / wall."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = get_config("olmo-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_tree(zoo.get_model(cfg).specs(cfg), gen, cfg.dtype(),
@@ -811,32 +1015,13 @@ def train_profile_phase(n_wall=5):
         one()
         walls.append((time.time() - t0) * 1e3)
     wall_ms = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one()
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
+    rows, busy_ms = _profile_one(one, "train_trace.json")
     print(f"profile (olmo-1b, batch 8 x 64, --elsa, one step): wall "
           f"{wall_ms:.2f} ms without the profiler (steps {walls}), device "
           f"busy {busy_ms:.2f} ms -> idle share {1 - busy_ms / wall_ms:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels; building the channel "
           f"(sketch index included) {build_ms:.3f} ms a step (median of 20)")
-    for us, n, key in rows[:15]:
-        print(f"  {us / 1e3:8.3f} ms {us / 1e3 / busy_ms:6.1%}  {n:5.0f}x  "
-              f"{key[:80]}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "train_trace.json"))
-    ours = {k: sum(us for us, _, key in rows if k in key) / 1e3
-            for k in ("lora_matmul", "ssop", "sketch_scatter",
-                      "sketch_gather")}
+    ours = _our_kernels_ms(rows)
     del params, lora, state
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, walls_ms=walls, device_busy_ms=busy_ms,
@@ -848,14 +1033,266 @@ def train_profile_phase(n_wall=5):
                              for us, n, key in rows[:15]])
 
 
-def build_phase():
-    """The three libraries, one nvcc each, started together."""
+# ---------------------------------------------------------------------------
+# 10. the federation
+# ---------------------------------------------------------------------------
+
+def _bert_full(num_layers=None, dtype=None, **overrides):
+    """bert-base at full width (d 768, 12 heads, vocab 30522), through the
+    registry's factory hook: ``Federation`` itself always reduces."""
+    cfg = get_config("bert-base").with_(**overrides)
+    if num_layers is not None:
+        cfg = cfg.with_(num_layers=num_layers)
+    if dtype is not None:
+        cfg = cfg.with_(param_dtype=dtype, activation_dtype=dtype)
+    return BertSplitModel(cfg)
+
+
+def federation_phase():
+    """``Federation(FedConfig(model="bert-base-full", ...),
+    backend="reference").run("elsa", global_rounds=2, steps_per_round=4)``
+    on the card in f32, each client step clipped to a global norm of 1.
+    Every gradient step (warm-up and rounds) is
+    wrapped to read the kernels' counts before and after it: each must
+    launch what its split implies (4 LoRA projections and one flash
+    attention per block, the channel's 16 launches at its two cuts).  The
+    probe and evaluation forwards launch too, outside the steps."""
+    register_split_model("bert-base-full", _bert_full)
+    # clip_norm: at full width the split model's gradient grows ~10x per
+    # block towards the input (LoRA q_b's norm 8e10 at block 0 at the
+    # init), so unclipped steps at lr 2e-2 reach NaN by the third warm-up
+    # step; the JAX package's convergence stack clips for this reason
+    fed_cfg = FedConfig(model="bert-base-full", layers=12, n_clients=8,
+                        n_edges=2, poisoned=(3,), total_examples=1600,
+                        batch_size=16, seq_len=128, probe_q=32,
+                        local_warmup_steps=4, t_rounds=1, lr=2e-2,
+                        clip_norm=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fed = Federation(fed_cfg, backend="reference", device="cuda")
+    cfg = fed.cfg
+    check((cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.vocab_size)
+          == (768, 12, 12, 30522), f"not full width: {cfg}")
+    steps, assigned = [], []
+    grad_fn, assign = fed._grad_fn, fed._assign_groups
+
+    def counted_grad_fn(client, split):
+        gfn = grad_fn(client, split)
+
+        def step(*args):
+            c0, t0 = _counts(), time.time()
+            out = gfn(*args)
+            torch.cuda.synchronize()
+            steps.append(dict(client=client, split=(split.p, split.q,
+                                                    split.o),
+                              ms=(time.time() - t0) * 1e3,
+                              launches={k: v - c0[k]
+                                        for k, v in _counts().items()}))
+            return out
+        return step
+
+    def recorded_assign(method, rng):
+        out = assign(method, rng)
+        assigned.append(out)
+        return out
+
+    fed._grad_fn, fed._assign_groups = counted_grad_fn, recorded_assign
+    _zero_counts()                                   # the main path starts
     t0 = time.time()
-    libs = (lora_ops.library, ssop_ops.library, cs_ops.library)
+    hist = fed.run("elsa", global_rounds=2, steps_per_round=4)
+    wall = time.time() - t0
+    counts = _counts()                               # the main path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    groups, div, trust = assigned[0]
+    members = sorted(n for g in groups.values() for n in g)
+    excluded = [n for n in range(fed_cfg.n_clients) if n not in members]
+    per_step = _per_step(cfg.num_layers, remat=False)
+    for st_ in steps:
+        check(st_["launches"] == per_step,
+              f"client {st_['client']} step launched {st_['launches']}, "
+              f"not {per_step}")
+    check(all(v > 0 for v in counts.values()), f"launches {counts}")
+    losses = [l for ls in hist["client_losses"].values() for l in ls]
+    check(len(losses) > 0 and all(np.isfinite(losses))
+          and all(np.isfinite(hist["loss"])), f"losses {hist['loss']}")
+    check(len(hist["accuracy"]) == 2, f"history {hist}")
+    warm = fed_cfg.n_clients * fed_cfg.local_warmup_steps
+    round_ms = [st_["ms"] for st_ in steps[warm:]]
+    step_ms = statistics.median(round_ms)
+    print(f"federation (bert-base full width, f32, 8 clients, 2 edges): "
+          f"groups { {k: v for k, v in groups.items() if v} }, excluded "
+          f"{excluded}, trust {np.round(trust, 3).tolist()}")
+    print(f"  history: accuracy {hist['accuracy']}, loss "
+          f"{[round(x, 4) for x in hist['loss']]}, delta "
+          f"{[f'{x:.3e}' for x in hist['delta']]}")
+    print(f"  {len(steps)} client steps ({warm} warm-up), "
+          f"{step_ms:.1f} ms a client step (forward + backward, median of "
+          f"the {len(round_ms)} round steps; 16 x 128 tokens), run "
+          f"{wall:.1f}s; launches per client step {steps[-1]['launches']}; "
+          f"in the run "
+          f"{counts}; peak memory {peak:.2f} GiB")
+
+    # where a client step's time goes: one step of the first member (its
+    # split and channel, its first batch, the final theta), the wall the
+    # median of 5 unprofiled steps, each ending in a sync
+    n = members[0] if members else 0
+    gfn = grad_fn(n, fed.split_for(n))
+    ch = fed.channel_for(n, fed.lora0)
+    batch = {"tokens": fed._tokens(fed.data[n].tokens[:16]),
+             "labels": torch.from_numpy(fed.data[n].labels[:16]).cuda()}
+
+    def one():
+        gfn(fed.last_theta, batch, ch)[0].item()
+
+    one()
+    walls = []
+    for _ in range(5):
+        t0 = time.time()
+        one()
+        walls.append((time.time() - t0) * 1e3)
+    prof_wall = statistics.median(walls)
+    print(f"  profile of one client step (client {n}, split "
+          f"{fed.split_for(n)}):")
+    rows, busy = _profile_one(one, "federation_step_trace.json")
+    print(f"  wall {prof_wall:.2f} ms without the profiler (steps "
+          f"{[round(w, 1) for w in walls]}), device busy {busy:.2f} ms -> "
+          f"idle share {1 - busy / prof_wall:.1%}, "
+          f"{sum(r[1] for r in rows):.0f} kernels")
+    out = dict(groups={str(k): v for k, v in groups.items()},
+               excluded=excluded, trust=list(map(float, trust)),
+               accuracy=hist["accuracy"], loss=hist["loss"],
+               delta=hist["delta"], client_steps=len(steps),
+               warmup_steps=warm, step_ms=step_ms, step_ms_all=round_ms,
+               run_s=wall, launches_per_step=steps[-1]["launches"],
+               launches=counts,
+               peak_gib=peak, profile=dict(
+                   wall_ms=prof_wall, walls_ms=walls, device_busy_ms=busy,
+                   idle_share=1 - busy / prof_wall,
+                   kernels=sum(r[1] for r in rows),
+                   our_kernels_ms=_our_kernels_ms(rows),
+                   top_kernels=[dict(ms=us / 1e3, count=c, name=key)
+                                for us, c, key in rows[:15]]))
+    del fed
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# 10b. split-training parity at full width
+# ---------------------------------------------------------------------------
+
+def split_parity_phase(qk_scale=0.1):
+    """One ``split_loss`` gradient of bert-base at full width (d 768, 12
+    heads; f32, 4 layers, split (1, 1, 2): both cuts real) through the
+    channel (SS-OP r 8, sketch Y 3, Z 121), the kernel path against the
+    plain path (autograd through the plain versions) on the same weights,
+    batch and channel.  As phase 7, each block's LoRA gradient must agree
+    with the plain path to 4x that block's own floor, or 1e-5 of its
+    scale, with wq and wk scaled by ``qk_scale`` (soft attention: at the
+    init the scores reach ~100 and the f32 error swamps the check).  The
+    floor is the larger of the plain path's f32-vs-f64 error and how far
+    the plain path's gradient moves when the channel's input is perturbed
+    by one f32 rounding (relative 2^-23, two draws): the median decode has
+    near-ties (about ten features a cut within 1e-6 of the scale here),
+    and a rounding that flips one routes that feature's gradient through
+    another bucket, which the kernel path's other summation order can do
+    too.  Block 0's tolerance must stay within a tenth of its scale, so a
+    wrong channel backward (18% of the scale in phase 7's mutation) still
+    fails."""
+    m = get_split_model("bert-base", reduced=False, num_layers=4,
+                        dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = init_tree(m.specs(4), gen, torch.float32, "cuda")
+    _random_b(p["lora"], gen, 0.02)
+    for layer in p["frozen"]["blocks"]:
+        layer["attn"]["wq"].mul_(qk_scale)
+        layer["attn"]["wk"].mul_(qk_scale)
+    d = m.cfg.d_model
+    u = torch.linalg.qr(torch.randn(d, 8, generator=gen, device="cuda"))[0]
+    v = torch.linalg.qr(torch.randn(8, 8, generator=gen, device="cuda"))[0]
+    ch = Channel(SSOP(u, v), make_plan(d, 3, int(d / (2.1 * 3)), seed=11,
+                                       device="cuda"))
+    toks = torch.randint(0, m.cfg.vocab_size, (8, 128), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks, "labels": torch.randint(
+        0, 4, (8,), generator=gen, device="cuda")}
+    split = split_training.Split(1, 1, 2)
+
+    def grad(model, params, channel=ch):
+        loss, g = split_training.loss_and_grad(
+            lambda lp: split_training.split_loss(
+                model, params["frozen"], lp, batch, split, channel),
+            params["lora"])
+        torch.cuda.synchronize()
+        return float(loss), g
+
+    def perturbed(seed):
+        noise_gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def call(h):
+            e = torch.randn(h.shape, generator=noise_gen, device=h.device,
+                            dtype=h.dtype)
+            return ch(h * (1 + 2 ** -23 * e))
+        return call
+
+    m64 = get_split_model("bert-base", reduced=False, num_layers=4,
+                          dtype="float64")
+    p64 = {k: tree_map(lambda t: t.double(), v) for k, v in p.items()}
+    _zero_counts()
+    k_loss, k_g = grad(m, p)
+    counts = _counts()
+    check(counts == _per_step(4, remat=False), f"kernel path {counts}")
+    with plain_path():
+        p_loss, p_g = grad(m, p)
+        t_loss, t_g = grad(m64, p64)
+        moved = [grad(m, p, perturbed(seed))[1] for seed in (1, 2)]
+    check(_counts() == counts, "the plain path launched a kernel")
+    tol_loss = max(4 * abs(p_loss - t_loss), 1e-5 * abs(p_loss))
+    print(f"bert-base full width, f32, 4 layers, wq/wk x {qk_scale}: loss "
+          f"kernel {k_loss:.6f} plain {p_loss:.6f} (f64 {t_loss:.6f}), err "
+          f"{abs(k_loss - p_loss):.3e} (tol {tol_loss:.3e})")
+    check(abs(k_loss - p_loss) <= tol_loss, "loss")
+    names = [f"block {i}" for i in range(4)] + ["pooler", "head"]
+
+    def part(g, name):
+        return g["blocks"][int(name[-1])] if name.startswith("block") \
+            else g[name]
+    blocks = []
+    for name in names:
+        kg, pg = part(k_g, name), part(p_g, name)
+        blk = dict(part=name, max_g=_max_abs(pg), err=_max_abs(kg, pg),
+                   floor_f64=_max_abs(pg, part(t_g, name)),
+                   floor_moved=max(_max_abs(pg, part(g, name))
+                                   for g in moved))
+        blk["tol"] = max(4 * blk["floor_f64"], 4 * blk["floor_moved"],
+                         1e-5 * blk["max_g"])
+        blocks.append(blk)
+        print(f"  {name}: max|g| {blk['max_g']:.3e}, kernel vs plain "
+              f"{blk['err']:.3e} (tol {blk['tol']:.3e} = "
+              f"{blk['tol'] / blk['max_g']:.3%} of max|g|; plain f32 vs f64 "
+              f"{blk['floor_f64']:.3e}, moved by a rounding of the channel's "
+              f"input {blk['floor_moved']:.3e})")
+        check(blk["err"] <= blk["tol"], f"{name}: {blk['err']:.3e} > "
+                                        f"{blk['tol']:.3e}")
+    check(blocks[0]["tol"] <= 0.1 * blocks[0]["max_g"],
+          "block 0's tolerance is over a tenth of its scale; the check "
+          "would not see a wrong channel backward")
+    del p, p64, k_g, p_g, t_g, moved
+    torch.cuda.empty_cache()
+    return dict(qk_scale=qk_scale, loss_kernel=k_loss, loss_plain=p_loss,
+                loss_f64=t_loss, parts=blocks, launches=counts)
+
+
+def build_phase():
+    """The four libraries, one nvcc each, started together."""
+    t0 = time.time()
+    libs = (lora_ops.library, ssop_ops.library, cs_ops.library,
+            fa_ops.library)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
-    print(f"built and loaded 3 kernel libraries in {time.time() - t0:.1f}s")
+    print(f"built and loaded {len(libs)} kernel libraries in "
+          f"{time.time() - t0:.1f}s")
 
 
 def _record_row(name, source, replaces, launches, row):
@@ -875,6 +1312,8 @@ def main():
         rows = kernel_phase()
     with phase("3b channel kernels against plain versions"):
         ch_rows = channel_kernel_phase()
+    with phase("3c flash attention against plain version"):
+        fa_rows = flash_kernel_phase()
     with phase("init full llama3-8b"):
         cfg = get_config("llama3-8b")
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -898,21 +1337,31 @@ def main():
         training, train_launches = train_phase()
     with phase("9 training profile"):
         t_prof = train_profile_phase()
+    with phase("10 federation"):
+        federation, fed_launches = federation_phase()
+    with phase("10b split-training parity"):
+        s_parity = split_parity_phase()
 
     def pick(kernel, op):
         return next(r for r in ch_rows if r["kernel"] == kernel
                     and r["op"] == op and r["case"] == "train"
                     and r["dtype"] == "bfloat16")
 
+    def by_path(name):
+        out = {"train": train_launches[name],
+               "federation": fed_launches[name]}
+        if name == "lora_matmul":
+            out = {"serve": serve_launches, **out}
+        return out
+
     q = next(r for r in rows if r["shape"] == "q" and r["dtype"] == "bfloat16")
     t512 = next(r for r in rows if r["shape"] == "train"
                 and r["dtype"] == "bfloat16")
     lora = _record_row("lora_matmul", "src/repro_torch/csrc/lora_matmul.cu",
                        "src/repro/kernels/lora/kernel.py:58",
-                       serve_launches + train_launches["lora_matmul"], q)
+                       sum(by_path("lora_matmul").values()), q)
     lora.update(shape="T=8 K=4096 O=4096 r=16 bfloat16 (q projection)",
-                launches_by_path={"serve": serve_launches,
-                                  "train": train_launches["lora_matmul"]},
+                launches_by_path=by_path("lora_matmul"),
                 at_train_shape={k: t512[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "max_abs_err")} | {"shape": "T=512 K=2048 O=2048 r=16 "
@@ -928,21 +1377,42 @@ def main():
             ("sketch_gather", "src/repro_torch/csrc/count_sketch.cu",
              "src/repro/kernels/count_sketch/kernel.py:107", "decompress",
              "compress backward")):
-        row = _record_row(name, src, repl, train_launches[name],
+        row = _record_row(name, src, repl, sum(by_path(name).values()),
                           pick(name, fwd))
         b = pick(name, bwd)
         row.update(shape=f"{fwd}, T=512 D=2048 r=16 Y=3 Z=325 bfloat16",
+                   launches_by_path=by_path(name),
                    backward={k: b[k] for k in (
                        "ms", "plain_ms", "library_ms", "bound_ms",
                        "bound_by", "max_abs_err")} | {"op": bwd})
         kernels.append(row)
+    bert_case = fa_rows[0]
+    flash = _record_row("flash_attention",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:92",
+                        sum(by_path("flash_attention").values()), bert_case)
+    flash.update(shape="B=16 S=128 H=12 Dh=64 float32 non-causal (bert-base)",
+                 launches_by_path=by_path("flash_attention"),
+                 launches_per_step={
+                     "federation client step":
+                         federation["launches_per_step"]["flash_attention"],
+                     "olmo-1b training step":
+                         training["launches_per_step"]["flash_attention"]},
+                 cases=[{k: r[k] for k in (
+                     "case", "B", "S", "H", "KV", "Dh", "dtype", "causal",
+                     "window", "ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by", "max_abs_err", "grad_rel_err",
+                     "grad_peak_mib")} for r in fa_rows[1:]])
+    kernels.append(flash)
     record = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "lora_shapes": rows, "channel_shapes": ch_rows,
-                   "serving": serving, "profile": prof,
-                   "train_parity": t_parity, "training": training,
-                   "train_profile": t_prof, **record}, f, indent=1)
+                   "flash_shapes": fa_rows, "serving": serving,
+                   "profile": prof, "train_parity": t_parity,
+                   "training": training, "train_profile": t_prof,
+                   "federation": federation, "split_parity": s_parity,
+                   **record}, f, indent=1, default=str)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

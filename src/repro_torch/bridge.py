@@ -12,6 +12,9 @@ a list with one dict per layer.  So the mapping is by path:
 
 Non-parametric norms (olmo-1b's ``ln1``/``ln2``/``final_norm``) are empty
 dicts and cross as empty dicts; a tied-embedding model has no ``head``.
+BERT's leaves outside the block stack (frozen ``pos``, ``seg`` and
+``ln_embed``; LoRA ``pooler`` and ``head``) have no layer axis and cross as
+they are.
 The ELSA channel's parameters (``u``, ``v``, ``bucket``, ``sign``) and an
 AdamW state (``step``, and ``m``/``v`` shaped like the LoRA tree) cross the
 same way.

@@ -7,14 +7,16 @@ the ROADMAP queue that brings it over.
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, InputShape, INPUT_SHAPES  # noqa: F401
-from repro_torch.configs import llama3_8b, olmo_1b
+from repro_torch.configs import bert_base, llama3_8b, olmo_1b
 
 REGISTRY = {
     "llama3-8b": llama3_8b.CONFIG,
     "olmo-1b": olmo_1b.CONFIG,
+    # the paper's own model
+    "bert-base": bert_base.CONFIG,
 }
 
-ASSIGNED = list(REGISTRY)
+ASSIGNED = [k for k in REGISTRY if k != "bert-base"]
 
 
 def get_config(arch: str) -> ArchConfig:

@@ -1,0 +1,185 @@
+"""Wrappers of the flash-attention kernel.
+
+:func:`flash_attention_fwd` is the raw forward: a CPU tensor goes to the
+plain version (:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`),
+a CUDA tensor launches the hand-written kernel ``csrc/flash_attention.cu``
+or raises; it returns ``(o, m, l)`` and carries no gradient.
+:func:`flash_attention`, the counterpart of the JAX package's
+``repro/kernels/flash_attention/ops.py::flash_attention``, goes through
+:class:`FlashAttentionFunction`, which saves only q, k, v, o, m and l and
+recomputes the probabilities one kv chunk at a time in its backward, as the
+JAX package's custom VJP ``models/common.py::_chunked_attn`` does.  That
+backward is plain PyTorch on both devices: the JAX package has no backward
+kernel either (a hand-written one is in ROADMAP.md's perf queue).
+
+``flash_attention_fwd.launches`` counts kernel launches (never plain-version
+calls).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, attend_mask,
+                                                     attention_ref)
+
+HEAD_DIMS = (64, 128)
+BWD_CHUNK = 256        # kv rows per backward chunk: bounds its fp32 blocks
+_SOURCES = ("flash_attention.cu",)
+_FUNCS = {torch.bfloat16: "flash_attention_fwd_bf16",
+          torch.float32: "flash_attention_fwd_f32"}
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    return _build.load("flash_attention", _SOURCES, {
+        name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()})
+
+
+def _check_shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, _, H, Dh = q.shape
+    if k.shape[0] != B or k.shape[3] != Dh or H % k.shape[2]:
+        raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} (q heads must be a multiple of "
+                         f"kv heads)")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int, scale: float):
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> ``(o, m, l)``: o (B, Sq,
+    H, Dh) in q's dtype, m and l (B, H, Sq) fp32 on CUDA (the accumulation
+    dtype on the CPU).  No gradient.
+
+    On CUDA: bf16 or f32, q, k and v of one dtype and device, Dh 64 or 128,
+    the last dimension contiguous (the others are read with their
+    strides)."""
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    return _launch(q, k, v, causal, window, scale)
+
+
+flash_attention_fwd.launches = 0
+
+
+def _launch(q, k, v, causal, window, scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    fn_name = _FUNCS.get(q.dtype)
+    if fn_name is None:
+        raise TypeError(f"flash_attention kernel takes bf16 or f32, got "
+                        f"{q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype} on "
+                            f"{t.device}, q is {q.dtype} on {q.device}")
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dim in "
+                         f"{HEAD_DIMS}, got {Dh}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name}'s last dimension is "
+                             f"not contiguous")
+    o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, m, l
+    fn = getattr(library(), fn_name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 m.data_ptr(), l.data_ptr(), B, Sq, Sk, H, KV, Dh,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 float(scale), int(bool(causal)), int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
+                           f"{err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, KV={KV}, "
+                           f"Dh={Dh}, {q.dtype})")
+    flash_attention_fwd.launches += 1
+    return o, m, l
+
+
+def attention_bwd(q, k, v, o, m, l, do, *, causal: bool, window: int,
+                  scale: float, chunk: int = BWD_CHUNK):
+    """The gradient of the attention from the saved (q, k, v, o, m, l): for
+    each kv chunk, ``P = exp(s - m) / max(l, 1e-30)``, ``dP = dO Vᵀ``,
+    ``dS = P (dP - Σ dO·O) scale``; dV = Pᵀ dO and dK = dSᵀ Q are summed
+    over the G query heads of each kv head, dQ = dS K over the chunks.
+    The steps of the JAX package's ``_chunked_attn_bwd``, in the
+    accumulation dtype, each gradient rounded once to its input's dtype."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    acc_dt = torch.promote_types(q.dtype, torch.float32)
+    dev = q.device
+    qf = q.reshape(B, Sq, KV, G, Dh).to(acc_dt)
+    dof = do.reshape(B, Sq, KV, G, Dh).to(acc_dt)
+    of = o.reshape(B, Sq, KV, G, Dh).to(acc_dt)
+    mm = m.reshape(B, KV, G, Sq).to(acc_dt)
+    ll = l.reshape(B, KV, G, Sq).to(acc_dt).clamp_min(1e-30)
+    dsum = torch.einsum("bqkgd,bqkgd->bkgq", dof, of)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((B, Sk, KV, Dh), dtype=acc_dt, device=dev)
+    dv = torch.empty((B, Sk, KV, Dh), dtype=acc_dt, device=dev)
+    q_pos = torch.arange(Sq, device=dev)
+    for c0 in range(0, Sk, chunk):
+        kc = k[:, c0:c0 + chunk].to(acc_dt)
+        vc = v[:, c0:c0 + chunk].to(acc_dt)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc) * scale
+        k_pos = torch.arange(c0, c0 + kc.shape[1], device=dev)
+        s = torch.where(attend_mask(q_pos, k_pos, causal=causal,
+                                    window=window), s, NEG_INF)
+        p = torch.exp(s - mm[..., None]) / ll[..., None]
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vc)
+        ds = p * (dp - dsum[..., None]) * scale
+        dv[:, c0:c0 + chunk] = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+        dk[:, c0:c0 + chunk] = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+        dq += torch.einsum("bkgqs,bskd->bqkgd", ds, kc)
+    return (dq.reshape(B, Sq, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with the memory-lean backward: saves q, k, v, o and
+    the row statistics m, l (nothing of size Sq x Sk)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, m, l = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, m, l, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    kv_valid=None, scale=None):
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> (B, Sq, H, Dh), with a
+    gradient for q, k and v.
+
+    The training/prefill case only (``q_offset`` 0, the whole of k valid),
+    as in the JAX package; decode attention runs the einsum path of
+    :mod:`repro_torch.models.common`."""
+    if q_offset != 0 or kv_valid is not None:
+        raise ValueError("flash_attention covers the train/prefill case "
+                         "(q_offset 0, no kv_valid)")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return FlashAttentionFunction.apply(q, k, v, bool(causal), int(window),
+                                        float(scale))

@@ -20,11 +20,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sketch import SketchPlan
-from repro_torch.core.split_training import Channel
+from repro_torch.core.split_training import Channel, loss_and_grad
 from repro_torch.core.ssop import SSOP
 from repro_torch.models import zoo
 from repro_torch.optim import AdamW
-from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.optim.optimizers import tree_map
 
 SSOP_RANK = 16
 SKETCH_ROWS = 3
@@ -70,15 +70,16 @@ def make_train_step(cfg: ArchConfig, *, optimizer: Optional[AdamW] = None,
     ``elsa_z`` is set, the ELSA tripartite split channel is applied at the
     Eq. 8-9 boundaries inside the layer stack.  The channel, the sketch's
     inverse index included, is built from those tensors on every call, as
-    the JAX package builds it inside its step."""
+    the JAX package builds it inside its step.
+
+    ``use_flash`` is accepted and changes nothing, as in the JAX package
+    (which takes the flag and does not pass it on): the port's cache-free
+    attention is flash attention, so on the card every training step runs
+    the flash kernel (:func:`repro_torch.models.common.gqa_attention`)."""
     if per_pod_lora:
         raise NotImplementedError(
             "per_pod_lora: per-pod LoRA replicas need the multi-GPU engine "
             "(ROADMAP.md, queue 8)")
-    if use_flash:
-        raise NotImplementedError(
-            "use_flash: the flash-attention kernel is not ported yet "
-            "(ROADMAP.md, queue 2: TPU kernels to port, flash attention)")
     model = zoo.get_model(cfg)
     opt = optimizer or AdamW(lr=1e-4)
 
@@ -93,12 +94,8 @@ def make_train_step(cfg: ArchConfig, *, optimizer: Optional[AdamW] = None,
         return zoo.loss_fn(cfg, logits, batch["tokens"], aux)
 
     def value_and_grad(frozen, lora, batch, channel_params):
-        lp = tree_map(lambda p: p.detach().requires_grad_(True), lora)
-        loss = single_loss(frozen, lp, batch, channel_params)
-        leaves = tree_leaves(lp)
-        grads = torch.autograd.grad(loss, leaves)
-        it = iter(grads)
-        return loss.detach(), tree_map(lambda _: next(it), lp)
+        return loss_and_grad(
+            lambda lp: single_loss(frozen, lp, batch, channel_params), lora)
 
     def step(frozen, lora, opt_state, batch):
         batch = dict(batch)

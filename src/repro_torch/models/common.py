@@ -6,11 +6,12 @@ same layouts at every public function (``wq`` is (D, H, hd), ``wo`` is
 (H, hd, D), activations are (B, S, H, hd)) so that tests compare like with
 like.  The q/k/v/o projections go through the fused LoRA wrapper
 (:func:`repro_torch.kernels.lora.ops.lora_matmul`): on a CUDA tensor that
-is the hand-written kernel.  Training differentiates the chunked
-attention by autograd through its online-softmax loop, which gives the
-gradient of the JAX package's custom VJP ``_chunked_attn``; that VJP's
-memory-lean backward, and the flash-attention kernel, are still to port
-(ROADMAP.md, queue 2).
+is the hand-written kernel.  The cache-free attention (training and
+prefill) is flash attention (:func:`repro_torch.kernels.flash_attention.ops.
+flash_attention`): on a CUDA tensor the hand-written kernel, with the
+memory-lean backward of the JAX package's custom VJP ``_chunked_attn``.
+Decode attention over a cache stays on the einsum path, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -19,10 +20,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, attend_mask,
+                                                     attention_ref)
 from repro_torch.kernels.lora.ops import lora_matmul
 from repro_torch.models.params import Spec
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -179,66 +181,40 @@ def out_project(p, lp, att, x_shape_dtype, lora_scale: float):
 # attention core
 # ---------------------------------------------------------------------------
 
-def _mask(q_pos, k_pos, *, causal: bool, window: int, kv_valid=None):
-    """q_pos (Sq,), k_pos (Sk,) -> bool (Sq, Sk), True = attend."""
-    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                   device=q_pos.device)
-    if causal:
-        m &= k_pos[None, :] <= q_pos[:, None]
-    if window:
-        m &= k_pos[None, :] > (q_pos[:, None] - window)
-    if kv_valid is not None:
-        m &= k_pos[None, :] < kv_valid
-    return m
-
-
-def _chunked_attn_fwd_core(qr, ks, vs, kpos_chunks, q_pos, *, causal,
-                           window, kv_valid, scale):
-    """Online-softmax forward over kv chunks.
-
-    qr: (B,Sq,KV,G,Dh); ks/vs: (nc, B, C, KV, Dh); returns (o, m, l) with
-    o (B,KV,G,Sq,Dv) and m/l (B,KV,G,Sq) in the accumulation dtype.
-    """
-    B, Sq, KV, G, Dh = qr.shape
-    Dv = vs.shape[-1]
-    acc_dt = _acc_dtype(qr)
-    dev = qr.device
-    m_run = torch.full((B, KV, G, Sq), NEG_INF, dtype=acc_dt, device=dev)
-    l_run = torch.zeros((B, KV, G, Sq), dtype=acc_dt, device=dev)
-    acc = torch.zeros((B, KV, G, Sq, Dv), dtype=acc_dt, device=dev)
-    qf = qr.to(acc_dt)
-    for kc, vc, k_pos in zip(ks, vs, kpos_chunks):
-        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc.to(acc_dt)) * scale
-        msk = _mask(q_pos, k_pos, causal=causal, window=window,
-                    kv_valid=kv_valid)
-        s = torch.where(msk, s, NEG_INF)
-        m_new = torch.maximum(m_run, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m_run - m_new)
-        l_run = l_run * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).to(acc_dt)
-        m_run = m_new
-    o = acc / l_run.clamp_min(1e-30)[..., None]
-    return o, m_run, l_run
-
-
 def gqa_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                   kv_offset=0, kv_valid=None, chunk=2048, use_flash=False,
                   scale=None, k_positions=None):
-    """Grouped-query attention with online-softmax kv chunking.
+    """Grouped-query attention.
 
     q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh).  ``q_offset`` is the absolute
     position of q[:,0]; ``kv_valid`` masks cache slots >= current length;
     ``k_positions`` (Sk,) gives each slot's absolute position (ring cache).
-    Never materializes an (Sq, Sk) tensor when Sk > chunk.  The products
-    are plain ``torch.einsum``: the JAX package leaves them to XLA too.
+
+    The cache-free case (q_offset and kv_offset 0, no ``kv_valid``, no
+    ``k_positions``: what :func:`attn_apply` passes without a cache) is
+    :func:`~repro_torch.kernels.flash_attention.ops.flash_attention`, for
+    any Sk: on the card it always runs the hand-written kernel, whatever
+    ``use_flash`` says (the flag is accepted for the JAX package's
+    signature, where it selects the Pallas kernel), and its backward never
+    keeps an (Sq, Sk) tensor.  Decode over a cache runs the einsum path:
+    direct for Sk <= chunk; beyond it, the online softmax over kv chunks of
+    flash attention's plain version
+    (:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`).  Its
+    products are plain ``torch.einsum``: the JAX package leaves them to XLA
+    too.
     """
-    if use_flash:
-        raise NotImplementedError(
-            "use_flash: the flash-attention kernel "
-            "(repro/kernels/flash_attention) is not ported yet (ROADMAP.md, "
-            "queue 2: TPU kernels to port, flash attention)")
+    if (kv_valid is None and k_positions is None and q_offset == 0
+            and kv_offset == 0):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    if k.shape[1] > chunk:
+        if k.shape[1] % chunk:
+            raise ValueError(f"Sk={k.shape[1]} not divisible by "
+                             f"chunk={chunk}")
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, chunk=chunk, q_offset=q_offset,
+                             kv_offset=kv_offset, kv_valid=kv_valid,
+                             k_positions=k_positions)[0]
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -246,34 +222,17 @@ def gqa_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     scale = Dh ** -0.5 if scale is None else scale
     qr = q.reshape(B, Sq, KV, G, Dh)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
-
-    if Sk <= chunk:
-        k_pos = (k_positions if k_positions is not None
-                 else kv_offset + torch.arange(Sk, device=q.device))
-        acc_dt = _acc_dtype(q)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qr.to(acc_dt),
-                         k.to(acc_dt)) * scale
-        m = _mask(q_pos, k_pos, causal=causal, window=window,
-                  kv_valid=kv_valid)
-        s = torch.where(m, s, NEG_INF)
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
-        return o.reshape(B, Sq, H, Dv)
-
-    if Sk % chunk:
-        raise ValueError(f"Sk={Sk} not divisible by chunk={chunk}")
-    n_chunks = Sk // chunk
-    ks = k.reshape(B, n_chunks, chunk, KV, k.shape[-1]).transpose(0, 1)
-    vs = v.reshape(B, n_chunks, chunk, KV, Dv).transpose(0, 1)
-    if k_positions is not None:
-        kpos_chunks = k_positions.reshape(n_chunks, chunk)
-    else:
-        kpos_chunks = (kv_offset + torch.arange(Sk, device=q.device)
-                       ).reshape(n_chunks, chunk)
-    o, _, _ = _chunked_attn_fwd_core(
-        qr, ks, vs, kpos_chunks, q_pos, causal=causal, window=window,
-        kv_valid=kv_valid, scale=scale)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+    k_pos = (k_positions if k_positions is not None
+             else kv_offset + torch.arange(Sk, device=q.device))
+    acc_dt = _acc_dtype(q)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr.to(acc_dt),
+                     k.to(acc_dt)) * scale
+    m = attend_mask(q_pos, k_pos, causal=causal, window=window,
+                    kv_valid=kv_valid)
+    s = torch.where(m, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    return o.reshape(B, Sq, H, Dv)
 
 
 def apply_mlp(cfg, p, x, d_ff: Optional[int] = None):

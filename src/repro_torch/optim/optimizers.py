@@ -1,8 +1,11 @@
-"""Optimizers over parameter trees (nested dicts and lists of tensors).
+"""Optimizers over parameter trees (nested dicts and lists of tensors):
+AdamW, SGD, the FedProx proximal term and optimizer, the FedAdam/FedAMS
+server optimizers, and global-norm clipping.
 
-The counterpart of the JAX package's ``repro/optim/optimizers.py`` for
-AdamW and clipping.  Updates are functional, as in JAX: ``update`` returns
-new tensors and leaves its inputs as they are.
+The counterpart of the JAX package's ``repro/optim/optimizers.py``.
+Updates are functional, as in JAX: ``update`` returns new tensors and
+leaves its inputs as they are.  Moments are kept in float32 whatever the
+parameters' dtype, as there.
 """
 from __future__ import annotations
 
@@ -59,6 +62,43 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.to(_acc(g)) * scale).to(g.dtype), grads)
 
 
+def fedprox_gradient(grads, params, anchor, mu: float):
+    """FedProx proximal gradient ``g + mu (w - w_anchor)``, leafwise."""
+    return tree_map(lambda g, p, a: g + mu * (p - a), grads, params, anchor)
+
+
+def _zeros_f32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _step0(params):
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else "cpu"
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+@dataclasses.dataclass
+class SGD(Optimizer):
+    lr: float = 1e-2
+    momentum: float = 0.0
+
+    def init(self, params):
+        if self.momentum == 0.0:
+            return {"step": _step0(params)}
+        return {"step": _step0(params),
+                "m": tree_map(torch.zeros_like, params)}
+
+    def update(self, params, grads, state):
+        lr = self.lr
+        if self.momentum == 0.0:
+            new = tree_map(lambda p, g: p - lr * g.to(p.dtype), params, grads)
+            return new, {"step": state["step"] + 1}
+        m = tree_map(lambda mm, g: self.momentum * mm + g.to(mm.dtype),
+                     state["m"], grads)
+        new = tree_map(lambda p, mm: p - lr * mm.to(p.dtype), params, m)
+        return new, {"step": state["step"] + 1, "m": m}
+
+
 @dataclasses.dataclass
 class AdamW(Optimizer):
     lr: float = 1e-3
@@ -71,12 +111,8 @@ class AdamW(Optimizer):
     def init(self, params):
         """``{"step": int32 scalar, "m", "v"}``; m and v are f32, on each
         parameter's device."""
-        leaves = tree_leaves(params)
-        device = leaves[0].device if leaves else "cpu"
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                      device=p.device)
-        return {"step": torch.zeros((), dtype=torch.int32, device=device),
-                "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+        return {"step": _step0(params), "m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params)}
 
     def update(self, params, grads, state):
         step = state["step"] + 1
@@ -99,3 +135,84 @@ class AdamW(Optimizer):
 
         new = tree_map(upd, params, m, v)
         return new, {"step": step, "m": m, "v": v}
+
+
+@dataclasses.dataclass
+class FedProx(Optimizer):
+    """SGD with the FedProx proximal term mu/2 ||w - w_global||^2
+    [Li et al., MLSys 2020]: g <- g + mu (w - w_global)."""
+    lr: float = 1e-2
+    mu: float = 0.01
+
+    def init(self, params):
+        return {"step": _step0(params), "anchor": tree_map(lambda p: p,
+                                                           params)}
+
+    def set_anchor(self, state, anchor):
+        return {**state, "anchor": anchor}
+
+    def update(self, params, grads, state):
+        new = tree_map(
+            lambda p, g, a: p - self.lr * (g.to(p.dtype) + self.mu * (p - a)),
+            params, grads, state["anchor"])
+        return new, {**state, "step": state["step"] + 1}
+
+
+@dataclasses.dataclass
+class FedAdam(Optimizer):
+    """Server-side adaptive aggregation (FedOpt family, Reddi et al., ICLR
+    2021) with bias-corrected moments: ``update`` treats ``grads`` as the
+    pseudo-gradient (old_global - aggregated)."""
+    lr: float = 0.05
+    b1: float = 0.9
+    b2: float = 0.99
+    tau: float = 1e-3      # adaptivity floor (Reddi et al.'s tau)
+
+    def init(self, params):
+        return {"step": _step0(params), "m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params)}
+
+    def update(self, params, grads, state):
+        step = state["step"] + 1
+        b1c = 1.0 - self.b1 ** step.to(torch.float32)
+        b2c = 1.0 - self.b2 ** step.to(torch.float32)
+        m = tree_map(lambda mm, g: self.b1 * mm
+                     + (1 - self.b1) * g.to(torch.float32), state["m"], grads)
+        v = tree_map(lambda vv, g: self.b2 * vv
+                     + (1 - self.b2) * torch.square(g.to(torch.float32)),
+                     state["v"], grads)
+        new = tree_map(lambda p, mm, vv:
+                       (p.to(torch.float32)
+                        - self.lr * (mm / b1c)
+                        / (torch.sqrt(vv / b2c) + self.tau)).to(p.dtype),
+                       params, m, v)
+        return new, {"step": step, "m": m, "v": v}
+
+
+@dataclasses.dataclass
+class FedAMS(Optimizer):
+    """Server-side adaptive aggregation with AMSGrad-style max-v [Wang et
+    al., ICML 2022].  ``update`` treats ``grads`` as the pseudo-gradient
+    (old_global - aggregated)."""
+    lr: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.99
+    eps: float = 1e-3
+
+    def init(self, params):
+        return {"step": _step0(params), "m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params),
+                "vmax": tree_map(_zeros_f32, params)}
+
+    def update(self, params, grads, state):
+        m = tree_map(lambda mm, g: self.b1 * mm
+                     + (1 - self.b1) * g.to(torch.float32), state["m"], grads)
+        v = tree_map(lambda vv, g: self.b2 * vv
+                     + (1 - self.b2) * torch.square(g.to(torch.float32)),
+                     state["v"], grads)
+        vmax = tree_map(torch.maximum, state["vmax"], v)
+        new = tree_map(lambda p, mm, vm:
+                       (p.to(torch.float32)
+                        - self.lr * mm / (torch.sqrt(vm) + self.eps)
+                        ).to(p.dtype), params, m, vmax)
+        return new, {"step": state["step"] + 1, "m": m, "v": v, "vmax": vmax}

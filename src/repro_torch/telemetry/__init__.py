@@ -1,9 +1,13 @@
-"""Serving telemetry: counters and histograms, one ``None`` check each
-while disabled.
+"""Telemetry: counters, histograms, spans and round markers, one ``None``
+check each while disabled.
 
-The subset of the JAX package's ``repro/telemetry`` that
-:mod:`repro_torch.serving` uses (``serving.requests``, ``serving.tokens``,
-``serving.adapter_swaps``, ``serving.request_s``)::
+The subset of the JAX package's ``repro/telemetry`` that the port's paths
+use: :mod:`repro_torch.serving` (``serving.requests``, ``serving.tokens``,
+``serving.adapter_swaps``, ``serving.request_s``) and the federation's
+round loop (:func:`span` around its phases, :func:`end_round`).  While
+enabled, a span's wall time goes to the histogram ``span_s{span=...}`` and
+each round end counts in ``rounds``; the JAX package's span records,
+gauges and exports wait for ROADMAP.md, queue 6::
 
     from repro_torch import telemetry as tm
 
@@ -14,6 +18,8 @@ The subset of the JAX package's ``repro/telemetry`` that
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Dict, Optional, Sequence
 
 from repro_torch.telemetry.collector import (DEFAULT_TIME_BUCKETS, Histogram,
@@ -21,7 +27,7 @@ from repro_torch.telemetry.collector import (DEFAULT_TIME_BUCKETS, Histogram,
 
 __all__ = ["DEFAULT_TIME_BUCKETS", "Histogram", "Telemetry", "flat_key",
            "enabled", "enable", "disable", "get", "inc", "observe",
-           "summary"]
+           "span", "end_round", "summary"]
 
 _active: Optional[Telemetry] = None
 
@@ -59,6 +65,29 @@ def observe(name: str, value: float,
     t = _active
     if t is not None:
         t.observe(name, value, buckets=buckets, **labels)
+
+
+@contextlib.contextmanager
+def _timed_span(t: Telemetry, name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        t.observe("span_s", time.perf_counter() - t0, span=name)
+
+
+def span(name: str, **attrs: Any):
+    """A context manager around one phase; a no-op while disabled.  The
+    attributes (round, edge, ...) are accepted for the JAX package's
+    signature and not recorded."""
+    t = _active
+    return _timed_span(t, name) if t is not None else contextlib.nullcontext()
+
+
+def end_round(round_idx: int) -> None:
+    t = _active
+    if t is not None:
+        t.inc("rounds")
 
 
 def summary() -> Optional[Dict[str, Any]]:

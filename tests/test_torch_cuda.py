@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (the LoRA projection, SS-OP and the count
-sketch, forward and backward) against their plain versions, on the card.
+"""The hand-written CUDA kernels (the LoRA projection, SS-OP, the count
+sketch and flash attention, forward and backward) against their plain
+versions, on the card.
 
 Marked ``cuda``: each test skips, with its reason, where there is no CUDA
 device.  On a machine with an H100 and nvcc:
@@ -12,6 +13,8 @@ import torch
 from repro_torch.core.sketch import SketchPlan, make_plan
 from repro_torch.kernels.count_sketch import ops as cs_ops
 from repro_torch.kernels.count_sketch import ref as cs_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lora import ops
 from repro_torch.kernels.lora.ref import lora_matmul_ref
 from repro_torch.kernels.ssop import ops as ssop_ops
@@ -207,3 +210,100 @@ def test_sketch_kernels_reject_what_they_do_not_take(cuda):
         ssop_ops.ssop_apply_td(torch.randn(2, 128, device=cuda),
                                torch.randn(128, 65, device=cuda),
                                torch.randn(65, 65, device=cuda))
+
+
+# (B, S, H, KV, Dh, dtype, causal, window): BERT (non-causal, f32), olmo-1b
+# (causal, Dh 128, bf16), ragged lengths, GQA at llama3-8b's ratio, windows
+# with and without causality, and a long causal sequence; phase 3c of
+# chip_smoke.py runs the same cases at full size
+FLASH_CASES = [
+    (2, 128, 12, 12, 64, torch.float32, False, 0),
+    (2, 64, 16, 16, 128, torch.bfloat16, True, 0),
+    (2, 24, 4, 4, 64, torch.float32, False, 0),
+    (1, 100, 4, 2, 64, torch.bfloat16, True, 0),
+    (1, 1000, 2, 2, 128, torch.float32, True, 0),
+    (1, 512, 32, 8, 128, torch.bfloat16, True, 0),
+    (1, 1000, 4, 4, 64, torch.float32, True, 128),
+    (1, 300, 2, 1, 64, torch.float32, False, 70),
+    (1, 2048, 2, 2, 128, torch.bfloat16, True, 0),
+]
+
+
+def _flash_inputs(cuda, B, S, H, KV, Dh, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(B, S, n, Dh, generator=g, device=cuda).to(dtype)
+            for n in (H, KV, KV)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(str(x).removeprefix("torch.")
+                                                for x in c))
+def test_flash_kernel_and_gradient_match_plain(cuda, case):
+    """The forward against the plain version: both take fp32 scores and
+    sums and round o once, so f32 is held to 1e-5 and bf16 to 2^-7 of
+    max|o| (summation order; one bf16 rounding); m and l to 1e-5.  The
+    gradient of the Function (the recomputing backward) against autograd
+    through the plain version: f32 to 1e-4 and bf16 to 2^-6 of the
+    gradient's largest value (the Function takes Σ dO·O from the rounded o,
+    autograd from the unrounded one; each gradient is rounded once)."""
+    B, S, H, KV, Dh, dtype, causal, window = case
+    q, k, v = _flash_inputs(cuda, B, S, H, KV, Dh, dtype)
+    n0 = fa_ops.flash_attention_fwd.launches
+    o, m, l = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window, scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_fwd.launches == n0 + 1
+    ro, rm, rl = attention_ref(q, k, v, causal=causal, window=window)
+    assert o.shape == ro.shape and o.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert (o.float() - ro.float()).abs().max() <= tol * ro.float().abs().max()
+    assert (m - rm).abs().max() <= 1e-5 * rm.abs().max()
+    assert (l - rl).abs().max() <= 1e-5 * rl.abs().max()
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa_ops.flash_attention(
+        *leaves, causal=causal, window=window), leaves, do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(
+        *plain, causal=causal, window=window)[0], plain, do)
+    gtol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        err = (a.float() - b.float()).abs().max()
+        assert err <= gtol * b.float().abs().max(), err
+
+
+def test_flash_kernel_reads_strided_heads(cuda):
+    """q, k and v sliced out of larger tensors (every other head, as a
+    view): the kernel reads them in place with their strides."""
+    big = _flash_inputs(cuda, 2, 77, 8, 8, 64, torch.float32, seed=3)
+    q, k, v = (t[:, :, ::2] for t in big)
+    assert not q.is_contiguous()
+    o, _, _ = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=0,
+                                         scale=0.125)
+    want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=True, window=0)[0]
+    assert (o - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 16, 2, 2, 64, torch.float32)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention_fwd(q.double(), k.double(), v.double(),
+                                   causal=True, window=0, scale=1.0)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention_fwd(q, k.bfloat16(), v, causal=True,
+                                   window=0, scale=1.0)
+    q32, k32, v32 = _flash_inputs(cuda, 1, 16, 2, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention_fwd(q32, k32, v32, causal=True, window=0,
+                                   scale=1.0)
+    wide = torch.randn(1, 16, 2, 128, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention_fwd(wide, k, v, causal=True, window=0,
+                                   scale=1.0)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention_fwd(q[:, :, :1].expand(1, 16, 3, 64), k, v,
+                                   causal=True, window=0, scale=1.0)

@@ -503,14 +503,25 @@ def test_train_step_matches_jax_f64(weights, f64, nm):
     assert not np.allclose(got["m"]["blocks"]["attn"]["q_a"], 0)
 
 
-def test_train_step_rejects_what_is_not_ported():
+def test_train_step_rejects_what_is_not_ported(weights):
     with pytest.raises(NotImplementedError, match="queue 8"):
         train.make_train_step(CFG, per_pod_lora=True)
-    with pytest.raises(NotImplementedError, match="flash"):
-        train.make_train_step(CFG, use_flash=True)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        torch_common.gqa_attention(*(torch.zeros(1, 2, 1, 4),) * 3,
-                                   use_flash=True)
+    # use_flash is accepted, as the JAX package accepts it, and changes
+    # nothing: the cache-free attention is flash attention either way
+    cfg, params, chan, toks = _port(weights, torch.float32)
+    losses = []
+    for use_flash in (False, True):
+        opt = AdamW(lr=3e-3)
+        step = train.make_train_step(cfg, optimizer=opt, elsa_z=Z,
+                                     use_flash=use_flash)
+        losses.append(float(step(params["frozen"], params["lora"],
+                                 opt.init(params["lora"]),
+                                 {"tokens": toks, "_channel": chan})[2]))
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    q, k, v = torch.randn(3, 1, 5, 2, 4, dtype=torch.float64)
+    torch.testing.assert_close(
+        torch_common.gqa_attention(q, k, v, use_flash=True),
+        torch_common.gqa_attention(q, k, v), rtol=0, atol=0)
 
 
 def test_main_trains_two_steps_on_cpu(capsys):
