@@ -15,16 +15,18 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    per source, all started together;
 3. the LoRA kernel against its plain version at llama3-8b's decode shapes,
    one ragged shape and olmo-1b's training shape (T 512), in bf16 and f32,
-   with times, bounds and a library yardstick;
+   and at the federation's (T 2048, K = O = 768, r 8, f32), with times,
+   bounds and a library yardstick;
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
    against their plain versions, forward and backward, at the training
    shapes and ragged ones, in bf16 and f32, with times and bounds;
 3c. flash attention against its plain version, forward (o, m, l) and
    gradient (the Function against autograd through the plain version), at
    bert-base's and olmo-1b's shapes, ragged lengths, GQA at llama3-8b's
-   ratio, a window and S 4096 (with the peak memory of its forward and
+   ratio (at Dh 128 and 64), a window and S 4096 (with the peak memory of its forward and
    backward), with times, bounds and ``scaled_dot_product_attention`` as
-   the library yardstick;
+   the library yardstick, and the time of the plain recomputing backward
+   beside SDPA's backward;
 4. full-width parity: llama3-8b decode steps, kernel path against plain path
    on the same weights (f32 at 2 layers, bf16 at full depth);
 5. serving: full llama3-8b (32 layers, bf16, random weights from a seed) in
@@ -205,10 +207,12 @@ def kernel_phase():
     shapes = [("q", 8, 4096, 4096, 16), ("k/v", 8, 4096, 1024, 16),
               ("o", 8, 4096, 4096, 16), ("ragged", 5, 4000, 1000, 16),
               ("train", 512, 2048, 2048, 16)]
+    fed = [("fed", 2048, 768, 768, 8)]   # bert-base's q/v in a client step
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        for name, T, K, O, r in shapes:
+        for name, T, K, O, r in shapes + (fed if dtype == torch.float32
+                                          else []):
             def make():
                 return ((torch.randn(K, O, generator=g, device="cuda")
                          / K ** 0.5).to(dtype),
@@ -400,6 +404,7 @@ FLASH_CASES = [
     ("ragged 1000", 1, 1000, 12, 12, 64, torch.float32, True, 0),
     ("gqa llama3-8b", 1, 512, 32, 8, 128, torch.bfloat16, True, 0),
     ("window 128", 1, 1000, 8, 8, 128, torch.bfloat16, True, 128),
+    ("gqa G4 d64", 1, 512, 32, 8, 64, torch.bfloat16, True, 0),
     ("long 4096", 1, 4096, 8, 8, 128, torch.bfloat16, True, 0),
 ]
 
@@ -445,6 +450,13 @@ def _sdpa(q, k, v, causal, window):
         enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
+def _sdpa_fwd_bwd(q, k, v, do, causal, window):
+    """SDPA's forward and backward on the same inputs: less its forward's
+    time, the library yardstick of the backward."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(_sdpa(*leaves, causal, window), leaves, do)
+
+
 def flash_kernel_phase():
     """The kernel's (o, m, l) against the plain version's on the same
     inputs: both take fp32 scores and sums and round o once, so f32 is
@@ -456,7 +468,9 @@ def flash_kernel_phase():
     (CUDA graphs, rotating over input copies that exceed L2); the long
     case also reports the peak memory of the Function's forward and
     backward against the 512 MiB that its eight fp32 S x S matrices would
-    take."""
+    take.  ``bwd_ms`` times the Function's backward alone (the plain
+    ``attention_bwd`` from the saved o, m and l); ``library_bwd_ms`` is
+    SDPA's forward plus backward less its forward."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for case, B, S, H, KV, Dh, dtype, causal, window in FLASH_CASES:
@@ -521,6 +535,21 @@ def flash_kernel_phase():
             lambda a, b, c: _sdpa(a, b, c, causal, window), sets, iters=iters)
         row["bound_ms"], row["bound_by"] = _flash_bound(
             B, S, H, KV, Dh, dtype, causal, window)
+        bwd_sets = []
+        for a, b, c in sets:
+            fo, fm, fl = fa_ops.flash_attention_fwd(
+                a, b, c, causal=causal, window=window, scale=Dh ** -0.5)
+            bwd_sets.append((a, b, c, fo, fm, fl, torch.randn(
+                fo.shape, generator=gen, device="cuda").to(dtype)))
+        row["bwd_ms"] = _time_ms(
+            lambda *t: fa_ops.attention_bwd(*t, causal=causal, window=window,
+                                            scale=Dh ** -0.5),
+            bwd_sets, iters=iters)
+        row["library_bwd_ms"] = _time_ms(
+            lambda a, b, c, fo, fm, fl, g: _sdpa_fwd_bwd(
+                a, b, c, g, causal, window),
+            bwd_sets, iters=iters) - row["library_ms"]
+        del bwd_sets
         rows.append(row)
         print(f"flash {case:13s} B={B} S={S} H={H} KV={KV} Dh={Dh} "
               f"{row['dtype']:8s} {'causal' if causal else 'full':6s} "
@@ -529,7 +558,9 @@ def flash_kernel_phase():
               f"  plain {row['plain_ms'] * 1e3:.2f} us  sdpa "
               f"{row['library_ms'] * 1e3:.2f} us  bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})  "
-              f"{row['bound_ms'] / row['ms']:.1%} of bound; fwd+bwd peak "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound; backward "
+              f"{row['bwd_ms'] * 1e3:.2f} us (sdpa "
+              f"{row['library_bwd_ms'] * 1e3:.2f} us); fwd+bwd peak "
               f"{peak_mib:.1f} MiB above the inputs", flush=True)
         del sets, q, k, v, o, m, l, do
         torch.cuda.empty_cache()
@@ -751,8 +782,16 @@ def profile_phase(cfg, params, n_ticks=8):
 def plain_path():
     """Route the projections, the attention and the channel's four stages
     through the plain versions, differentiated by autograd (the comparison
-    side of phases 7 and 10b; the port never does this itself)."""
+    side of phases 7 and 10b; the port never does this itself).  PyTorch's
+    deterministic algorithms are on meanwhile: the plain compress sums with
+    ``index_add``, whose CUDA kernel adds in no fixed order, and at the
+    median's near-ties one ulp decides a feature's bucket, so without them
+    the plain side's own gradient, and with it the floors of phase 10b,
+    changed from run to run (10b then failed about one run in six)."""
     st = split_training
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
     saved = (common.lora_matmul, common.flash_attention, st.apply_ssop,
              st.apply_ssop_inverse, st.compress, st.decompress)
     common.lora_matmul = lora_matmul_ref
@@ -772,6 +811,7 @@ def plain_path():
     finally:
         (common.lora_matmul, common.flash_attention, st.apply_ssop,
          st.apply_ssop_inverse, st.compress, st.decompress) = saved
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
 
 
 def _counts():
@@ -1402,7 +1442,8 @@ def main():
                      "case", "B", "S", "H", "KV", "Dh", "dtype", "causal",
                      "window", "ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by", "max_abs_err", "grad_rel_err",
-                     "grad_peak_mib")} for r in fa_rows[1:]])
+                     "grad_peak_mib", "bwd_ms", "library_bwd_ms")}
+                     for r in fa_rows[1:]])
     kernels.append(flash)
     record = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)

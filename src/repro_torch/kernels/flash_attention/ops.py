@@ -59,7 +59,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int, scale: float):
 
     On CUDA: bf16 or f32, q, k and v of one dtype and device, Dh 64 or 128,
     the last dimension contiguous (the others are read with their
-    strides)."""
+    strides), base pointers 16-byte aligned and strides whole 16-byte
+    pieces (the kernel copies tiles in 16-byte pieces), and every query
+    row attending to a key (with a window, Sq < Sk + window)."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -86,10 +88,22 @@ def _launch(q, k, v, causal, window, scale):
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim in "
                          f"{HEAD_DIMS}, got {Dh}")
+    if window > 0 and Sq >= Sk + window:
+        # query rows >= Sk + window - 1 see no key: the plain version gives
+        # them the mean of v (its finite NEG_INF), the kernel o = 0 and l = 0
+        raise ValueError(f"flash_attention kernel: with window {window}, "
+                         f"query rows >= {Sk + window - 1} attend to no key "
+                         f"(Sq {Sq}, Sk {Sk})")
+    vec = 16 // q.element_size()   # the kernel copies 16-byte pieces
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s last dimension is "
                              f"not contiguous")
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (pointer {t.data_ptr() % 16} bytes "
+                             f"off, strides {t.stride()[:3]} not multiples "
+                             f"of {vec})")
     o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)

@@ -215,7 +215,10 @@ def test_sketch_kernels_reject_what_they_do_not_take(cuda):
 # (B, S, H, KV, Dh, dtype, causal, window): BERT (non-causal, f32), olmo-1b
 # (causal, Dh 128, bf16), ragged lengths, GQA at llama3-8b's ratio, windows
 # with and without causality, and a long causal sequence; phase 3c of
-# chip_smoke.py runs the same cases at full size
+# chip_smoke.py runs the same cases at full size.  Then the edges of the
+# kernel's 64-row tiles (and of the 16-row mma fragments inside them): S 1,
+# 15, 17, 63, 65 and 129 in bf16 at both head dims, causal and full; a
+# window of 70 and GQA with G 4 in bf16; f32 at S 129.
 FLASH_CASES = [
     (2, 128, 12, 12, 64, torch.float32, False, 0),
     (2, 64, 16, 16, 128, torch.bfloat16, True, 0),
@@ -226,6 +229,14 @@ FLASH_CASES = [
     (1, 1000, 4, 4, 64, torch.float32, True, 128),
     (1, 300, 2, 1, 64, torch.float32, False, 70),
     (1, 2048, 2, 2, 128, torch.bfloat16, True, 0),
+] + [
+    (2, S, 4, 2, Dh, torch.bfloat16, causal, 0)
+    for S in (1, 15, 17, 63, 65, 129) for Dh in (64, 128)
+    for causal in (True, False)
+] + [
+    (1, 300, 4, 2, 128, torch.bfloat16, False, 70),
+    (2, 200, 8, 2, 64, torch.bfloat16, True, 0),
+    (2, 129, 4, 4, 64, torch.float32, True, 0),
 ]
 
 
@@ -275,6 +286,63 @@ def test_flash_kernel_and_gradient_match_plain(cuda, case):
         assert err <= gtol * b.float().abs().max(), err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernel_takes_more_queries_than_keys(cuda, dtype, causal):
+    """Sq 200 against Sk 130 with a window of 80: the last query rows see
+    only the window's first keys (rows >= 130 attend to none of their
+    own).  The forward and the gradient against the plain version, with
+    the tolerances of the cases above; a window that leaves a row with no
+    key at all (Sq >= Sk + window) is refused."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 200, 4, 64, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(1, 130, 2, 64, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    o, m, l = fa_ops.flash_attention_fwd(q, k, v, causal=causal, window=80,
+                                         scale=0.125)
+    ro, rm, rl = attention_ref(q, k, v, causal=causal, window=80)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert (o.float() - ro.float()).abs().max() <= tol * ro.float().abs().max()
+    assert (m - rm).abs().max() <= 1e-5 * rm.abs().max()
+    assert (l - rl).abs().max() <= 1e-5 * rl.abs().max()
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa_ops.flash_attention(
+        *leaves, causal=causal, window=80), leaves, do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(
+        *plain, causal=causal, window=80)[0], plain, do)
+    gtol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max() <= \
+            gtol * b.float().abs().max()
+    with pytest.raises(ValueError, match="attend to no key"):
+        fa_ops.flash_attention_fwd(q, k[:, :120], v[:, :120], causal=causal,
+                                   window=80, scale=0.125)
+
+
+@pytest.mark.parametrize("seed", [2, 3, 4])
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES
+                                  if c[4] == 128 and c[5] == torch.bfloat16],
+                         ids=lambda c: "-".join(str(x).removeprefix("torch.")
+                                                for x in c))
+def test_flash_bf16_d128_holds_under_other_seeds(cuda, case, seed):
+    """The bf16 Dh 128 cases (both products on wgmma) again on other
+    inputs: o against the plain version to 2^-7 of max|o|, m and l to
+    1e-5, as above."""
+    B, S, H, KV, Dh, dtype, causal, window = case
+    q, k, v = _flash_inputs(cuda, B, S, H, KV, Dh, dtype, seed=seed)
+    o, m, l = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window, scale=Dh ** -0.5)
+    ro, rm, rl = attention_ref(q, k, v, causal=causal, window=window)
+    assert (o.float() - ro.float()).abs().max() <= \
+        2 ** -7 * ro.float().abs().max()
+    assert (m - rm).abs().max() <= 1e-5 * rm.abs().max()
+    assert (l - rl).abs().max() <= 1e-5 * rl.abs().max()
+
+
 def test_flash_kernel_reads_strided_heads(cuda):
     """q, k and v sliced out of larger tensors (every other head, as a
     view): the kernel reads them in place with their strides."""
@@ -307,3 +375,13 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple"):
         fa_ops.flash_attention_fwd(q[:, :, :1].expand(1, 16, 3, 64), k, v,
                                    causal=True, window=0, scale=1.0)
+    # the kernel copies 16-byte pieces: a bf16 q whose base pointer is 2
+    # bytes off is refused
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    buf = torch.empty(qb.numel() + 1, dtype=qb.dtype, device=cuda)
+    off = buf.view(-1)[1:].view(qb.shape)
+    off.copy_(qb)
+    assert off.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention_fwd(off, kb, vb, causal=True, window=0,
+                                   scale=1.0)
