@@ -15,8 +15,12 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    per source, all started together;
 3. the LoRA kernel against its plain version at llama3-8b's decode shapes,
    one ragged shape and olmo-1b's training shape (T 512), in bf16 and f32,
-   and at the federation's (T 2048, K = O = 768, r 8, f32), with times,
-   bounds and a library yardstick;
+   and at the federation's (T 2048, K = O = 768, r 8 and r 0, f32), with
+   times, bounds, a library yardstick and the route each shape takes (the
+   library's rule held against its Python twin), and, for bf16 at T >= 64,
+   how its outputs' rounding differs from the plain version's on both
+   routes; then the cut sweep: the decode and the tile kernels, both
+   checked and timed, at T 16 to 256;
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
    against their plain versions, forward and backward, at the training
    shapes and ragged ones, in bf16 and f32, with times and bounds;
@@ -40,6 +44,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 8. training: the launcher (``launch.train._main``) on full olmo-1b (16
    layers, bf16, ``--elsa``) for 20 steps of its batch stream; the loss must
    fall and each kernel's launches per step must be what the path implies;
+8b. the step-0 witness: phase 8's first forward (every LoRA B zero) on
+   the kernel path, with the decode kernels forced, with the plain LoRA
+   projection and on the plain path, each loss and logits against the
+   plain path in f32;
 9. where a training step's time goes: ``torch.profiler`` over one step, and
    what building the channel each step costs;
 10. the federation: full-width bert-base (12 layers, f32, random weights
@@ -49,7 +57,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    times its split implies (flash 12, one per block);
 10b. split-training parity: one ``split_loss`` gradient of bert-base at
    full width (f32, 4 layers) through the channel, kernel path against
-   plain path, each block against its own f32-vs-f64 floor.
+   plain path, each block against its own f32-vs-f64 floor;
+11. every LoRA shape that phases 5, 8 and 10 launched (recorded while they
+   ran, with their pointers' alignment) against the plain version at
+   phase 3's tolerances, so every kernel instantiation a path ran is held.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -207,7 +218,8 @@ def kernel_phase():
     shapes = [("q", 8, 4096, 4096, 16), ("k/v", 8, 4096, 1024, 16),
               ("o", 8, 4096, 4096, 16), ("ragged", 5, 4000, 1000, 16),
               ("train", 512, 2048, 2048, 16)]
-    fed = [("fed", 2048, 768, 768, 8)]   # bert-base's q/v in a client step
+    # bert-base's q/v and its adapter-free k/o in a client step
+    fed = [("fed", 2048, 768, 768, 8), ("fed k/o", 2048, 768, 768, 0)]
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
@@ -239,17 +251,130 @@ def kernel_phase():
             plain_ms = _time_ms(lora_matmul_ref, sets)
             lib_ms = _time_ms(_library_lora, sets)
             bound_ms, bound_by = _bound(T, K, O, r, dtype)
+            route = _lora_route(T, K, O, r, dtype)
             row = dict(shape=name, T=T, K=K, O=O, r=r,
                        dtype=str(dtype).removeprefix("torch."),
                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       route=route)
             rows.append(row)
             print(f"lora {name:6s} {row['dtype']:8s} T={T} K={K} O={O} r={r}: "
                   f"err {err:.3e} (tol {tol:.3e})  kernel {ms * 1e3:.2f} us  "
                   f"plain {plain_ms * 1e3:.2f} us  library {lib_ms * 1e3:.2f} us"
                   f"  bound {bound_ms * 1e3:.2f} us ({bound_by})  "
-                  f"{bound_ms / ms:.1%} of bound", flush=True)
+                  f"{bound_ms / ms:.1%} of bound; {route}", flush=True)
+            if dtype == torch.bfloat16 and T >= lora_ops._TILE_MIN_ROWS:
+                row["rounding"] = _rounding(x, w, a, b)
             del sets, w, a, b
+    return rows
+
+
+def _lora_route(T, K, O, r, dtype, offsets=(0, 0, 0)):
+    """The route the library takes for these shapes (x, w and a at these
+    byte offsets from 16-byte alignment), checked against its Python twin
+    (``ops._uses_tiles``), as text: the decode kernels, or a tile kernel's
+    block, grid and waves (blocks over the card's SMs)."""
+    n = 16 // torch.tensor([], dtype=dtype).element_size()
+    aligned = K % n == 0 and O % n == 0 and not any(offsets)
+    plan = lora_ops._plan(T, K, O, r, dtype, aligned)
+    tiles = lora_ops._uses_tiles(T, K, O, r, dtype, aligned)
+    check((plan is not None) == tiles,
+          f"lora route of T={T} K={K} O={O} r={r}: library {plan}, twin "
+          f"{tiles}")
+    if plan is None:
+        return "decode kernels"
+    bt, bo, gx, gy, gz = plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"tiles {bt} x {bo}, grid {gx} x {gy} x {gz} (K split {gz}) = "
+            f"{gx * gy * gz} blocks, {gx * gy * gz / sms:.2f} blocks an SM "
+            f"on {sms} SMs")
+
+
+def _rounding(x, w, a, b):
+    """How a bf16 shape's outputs differ from the plain version's, on the
+    route the shape takes and on the decode kernels forced, with B as given
+    and with B = 0 (a training step's start: y is x W rounded once): the
+    share of outputs that differ, and the mean signed error and the mean
+    error towards zero, each over mean |y|.  Both kernels sum on tensor
+    cores and the plain version in fp32 SGEMM, so a sum that drifts one way
+    shows here and not in the max-error check: at most 1% of the outputs
+    may differ, and each mean error must stay within 1e-4 of mean |y| (one
+    bf16 ulp is 2^-8 of |y| or more, so a one-ulp drift in 3% of the
+    outputs would fail)."""
+    out = {}
+    for b_name, bb in (("B", b), ("B=0", torch.zeros_like(b))):
+        want = lora_matmul_ref(x, w, a, bb, 2.0).float()
+        mean = want.abs().mean().item()
+        for route in (None, "decode"):
+            d = lora_ops._launch(x, w, a, bb, 2.0, route=route).float() - want
+            key = f"{route or 'own route'}, {b_name}"
+            out[key] = dict(differ=(d != 0).float().mean().item(),
+                            signed=d.mean().item() / mean,
+                            towards_zero=-(d * want.sign()).mean().item()
+                            / mean)
+            print(f"  bf16 rounding, {key}: {out[key]['differ']:.3%} of "
+                  f"outputs differ from the plain version; mean error "
+                  f"{out[key]['signed']:+.2e}, towards zero "
+                  f"{out[key]['towards_zero']:+.2e} of mean |y|", flush=True)
+            check(out[key]["differ"] <= 0.01
+                  and abs(out[key]["signed"]) <= 1e-4
+                  and abs(out[key]["towards_zero"]) <= 1e-4,
+                  f"bf16 rounding, {key}: {out[key]}")
+    return out
+
+
+def lora_cut_sweep():
+    """Both routes of the LoRA kernel, forced through the private
+    ``route`` argument, at T 16 to 256 and K = O = 2048 and 4096 (r 16), in
+    both dtypes: each checked against the plain version as in phase 3 and
+    timed as there.  The rows put the cut (``kTileMinRows``) where the
+    tiles start to win; the script prints where that is in this run."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for K in (2048, 4096):
+            for T in (16, 32, 64, 128, 256):
+                r = 16
+                n_copies = max(2, -(-2 * L2_BYTES // (K * K * (
+                    torch.tensor([], dtype=dtype).element_size()))))
+                sets = []
+                for _ in range(n_copies):
+                    sets.append((
+                        torch.randn(T, K, generator=g, device="cuda").to(dtype),
+                        (torch.randn(K, K, generator=g, device="cuda")
+                         / K ** 0.5).to(dtype),
+                        (torch.randn(K, r, generator=g, device="cuda")
+                         / K ** 0.5).to(dtype),
+                        (torch.randn(r, K, generator=g, device="cuda")
+                         * 0.1).to(dtype), 2.0))
+                y_plain = lora_matmul_ref(*sets[0]).float()
+                tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * \
+                    y_plain.abs().max().item()
+                row = dict(T=T, K=K, O=K, r=r,
+                           dtype=str(dtype).removeprefix("torch."),
+                           chosen=("tile" if lora_ops._uses_tiles(
+                               T, K, K, r, dtype, True) else "decode"))
+                for route in ("decode", "tile"):
+                    def fn(*args, route=route):
+                        return lora_ops._launch(*args, route=route)
+                    err = (fn(*sets[0]).float() - y_plain).abs().max().item()
+                    check(err <= tol, f"lora {route} T={T} K={K} {dtype}: "
+                                      f"max abs err {err:.3e} > {tol:.3e}")
+                    row[f"{route}_ms"] = _time_ms(fn, sets)
+                    row[f"{route}_err"] = err
+                rows.append(row)
+                print(f"lora cut sweep {row['dtype']:8s} T={T:3d} K=O={K}: "
+                      f"decode {row['decode_ms'] * 1e3:8.2f} us  tiles "
+                      f"{row['tile_ms'] * 1e3:8.2f} us  (the port takes "
+                      f"{row['chosen']})", flush=True)
+                del sets
+    for dtype in ("bfloat16", "float32"):
+        wins = [r_["T"] for r_ in rows if r_["dtype"] == dtype
+                and all(q["tile_ms"] < q["decode_ms"] for q in rows
+                        if q["dtype"] == dtype and q["T"] >= r_["T"])]
+        print(f"lora cut sweep {dtype}: the tiles win at every K from T = "
+              f"{min(wins) if wins else 'none of the T swept'}; the cut is "
+              f"{lora_ops._TILE_MIN_ROWS}")
     return rows
 
 
@@ -814,6 +939,66 @@ def plain_path():
         torch.use_deterministic_algorithms(det[0], warn_only=det[1])
 
 
+@contextlib.contextmanager
+def _recording_lora_calls(calls):
+    """Count every LoRA kernel launch in the block by its dtype, T, K, O,
+    r and the byte offsets of x, w and a from 16-byte alignment (what the
+    library routes by), into ``calls`` for phase 11."""
+    launch = lora_ops._launch
+
+    def recorded(x, w, a, b, scale, route=None):
+        key = (str(x.dtype).removeprefix("torch."), x.numel() // w.shape[0],
+               w.shape[0], w.shape[1], a.shape[1],
+               tuple(t.data_ptr() % 16 for t in (x, w, a)))
+        calls[key] = calls.get(key, 0) + 1
+        return launch(x, w, a, b, scale, route)
+
+    lora_ops._launch = recorded
+    try:
+        yield calls
+    finally:
+        lora_ops._launch = launch
+
+
+def path_shapes_phase(calls):
+    """Every LoRA shape the three main paths launched (phases 5, 8 and 10)
+    against the plain version at phase 3's tolerances, on new inputs at the
+    byte offsets the path gave, so each kernel and each instantiation that
+    a path ran is checked (the library's route held against its twin)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for (dt, T, K, O, r, offsets), n in sorted(calls.items()):
+        dtype = getattr(torch, dt)
+        el = torch.tensor([], dtype=dtype).element_size()
+
+        def placed(rows_, cols, offset, std):
+            t = (torch.randn(rows_ * cols + 16, generator=g, device="cuda")
+                 * std).to(dtype)
+            return t[offset // el:offset // el + rows_ * cols].view(rows_,
+                                                                  cols)
+        x = placed(T, K, offsets[0], 1.0)
+        w = placed(K, O, offsets[1], K ** -0.5)
+        a = placed(K, r, offsets[2], K ** -0.5)
+        b = (torch.randn(r, O, generator=g, device="cuda") * 0.1).to(dtype)
+        check(tuple(t.data_ptr() % 16 for t in (x, w, a)) == offsets,
+              f"offsets {offsets}")
+        y = lora_ops.lora_matmul(x, w, a, b, 2.0)
+        want = lora_matmul_ref(x, w, a, b, 2.0).float()
+        err = (y.float() - want).abs().max().item()
+        tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * \
+            want.abs().max().item()
+        route = _lora_route(T, K, O, r, dtype, offsets)
+        rows.append(dict(dtype=dt, T=T, K=K, O=O, r=r, offsets=offsets,
+                         path_launches=n, max_abs_err=err, tol=tol,
+                         route=route))
+        print(f"lora path shape {dt:8s} T={T} K={K} O={O} r={r} offsets "
+              f"{offsets}: {n} launches on the paths; err {err:.3e} (tol "
+              f"{tol:.3e}); {route}", flush=True)
+        check(err <= tol, f"lora path shape T={T} K={K} O={O} r={r} {dt}: "
+                          f"max abs err {err:.3e} > {tol:.3e}")
+    return rows
+
+
 def _counts():
     return {"ssop_apply": ssop_ops.ssop_apply_td.launches,
             "sketch_scatter": cs_ops.sketch_scatter.launches,
@@ -1013,6 +1198,72 @@ def train_phase(steps=20):
                 ), counts
 
 
+def step0_phase(phase8_loss):
+    """The launcher's step-0 forward (phase 8's configuration: full olmo-1b,
+    bf16, ``--elsa``, the seed-0 init, its first batch) on four paths: the
+    kernels as the shapes route them (the tile kernel at T 512), the decode
+    kernels forced for every projection (the route of T 512 before the
+    tile kernels), the plain LoRA projection beside the other kernels, and
+    the plain path; each held against the plain path in f32.  Every LoRA B
+    is zero at the init, so each projection is x W rounded once: the four
+    bf16 paths differ only in how their sums round, which 16 layers of
+    attention at the init (scores of ~100) then amplify.  Reports each
+    loss, and each path's logits' mean and largest distance from the f32
+    logits; the kernel path's mean distance must stay within 1.2 x the
+    decode route's."""
+    cfg = get_config("olmo-1b")
+    model = zoo.get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = init_tree(model.specs(cfg), gen, cfg.dtype(), "cuda")
+    _, z = train.elsa_channel_specs(cfg)
+    chp = train.channel_params(cfg, z, "cuda")
+    batch = next(train.batch_stream(cfg, 8, 64, "cuda"))
+
+    def forward(c, t):
+        ch = Channel(SSOP(chp["u"], chp["v"]),
+                     SketchPlan(chp["bucket"], chp["sign"], z))
+        with torch.no_grad():
+            logits, aux = model.forward(
+                c, t["frozen"], t["lora"], batch, window=0, chunk=2048,
+                remat=True, boundaries=train.elsa_boundaries(c), channel=ch)
+            loss = float(zoo.loss_fn(c, logits, batch["tokens"], aux))
+        return logits[..., :cfg.vocab_size].float(), loss
+
+    runs = {"kernels": forward(cfg, tree)}
+    saved = common.lora_matmul
+    for name, fn in (("decode kernels forced", lambda x, w, a, b, s:
+                      lora_ops._launch(x, w, a, b, s, route="decode")),
+                     ("plain LoRA", lora_matmul_ref)):
+        common.lora_matmul = fn
+        try:
+            runs[name] = forward(cfg, tree)
+        finally:
+            common.lora_matmul = saved
+    with plain_path():
+        runs["plain path"] = forward(cfg, tree)
+        cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+        ref, ref_loss = forward(cfg32, {k: tree_map(lambda t: t.float(), v)
+                                        for k, v in tree.items()})
+    print(f"olmo-1b step 0 (bf16, T 512, every B zero): plain path in f32 "
+          f"loss {ref_loss:.4f}; phase 8 logged {phase8_loss:.4f}")
+    out = {"f32 plain path": dict(loss=ref_loss)}
+    for name, (logits, loss) in runs.items():
+        d = (logits - ref).abs()
+        out[name] = dict(loss=loss, mean_logit_err=d.mean().item(),
+                         max_logit_err=d.max().item())
+        print(f"  {name:22s} loss {loss:.4f}; logits against f32: mean "
+              f"{out[name]['mean_logit_err']:.4e}, max "
+              f"{out[name]['max_logit_err']:.4e}", flush=True)
+        check(np.isfinite(loss), f"{name}: loss {loss}")
+    check(out["kernels"]["mean_logit_err"]
+          <= 1.2 * out["decode kernels forced"]["mean_logit_err"],
+          f"step-0 logits: the kernel path lies further from f32 than 1.2 x "
+          f"the decode route: {out}")
+    del tree, runs, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 9. where a training step's time goes
 # ---------------------------------------------------------------------------
@@ -1062,6 +1313,7 @@ def train_profile_phase(n_wall=5):
           f"{sum(r[1] for r in rows):.0f} kernels; building the channel "
           f"(sketch index included) {build_ms:.3f} ms a step (median of 20)")
     ours = _our_kernels_ms(rows)
+    print(f"  the port's kernels, ms a step: {ours}")
     del params, lora, state
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, walls_ms=walls, device_busy_ms=busy_ms,
@@ -1198,6 +1450,7 @@ def federation_phase():
           f"{[round(w, 1) for w in walls]}), device busy {busy:.2f} ms -> "
           f"idle share {1 - busy / prof_wall:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels")
+    print(f"  the port's kernels, ms a client step: {_our_kernels_ms(rows)}")
     out = dict(groups={str(k): v for k, v in groups.items()},
                excluded=excluded, trust=list(map(float, trust)),
                accuracy=hist["accuracy"], loss=hist["loss"],
@@ -1350,6 +1603,7 @@ def main():
         build_phase()
     with phase("3 kernel against plain version"):
         rows = kernel_phase()
+        sweep = lora_cut_sweep()
     with phase("3b channel kernels against plain versions"):
         ch_rows = channel_kernel_phase()
     with phase("3c flash attention against plain version"):
@@ -1365,7 +1619,8 @@ def main():
               f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     with phase("4 full-width parity"):
         parity_phase(params)
-    with phase("5 serving"):
+    path_calls = {}
+    with phase("5 serving"), _recording_lora_calls(path_calls):
         serving, serve_launches = serving_phase(cfg, params)
     with phase("6 profile"):
         prof = profile_phase(cfg, params)
@@ -1373,14 +1628,18 @@ def main():
     torch.cuda.empty_cache()
     with phase("7 training parity"):
         t_parity = train_parity_phase()
-    with phase("8 training"):
+    with phase("8 training"), _recording_lora_calls(path_calls):
         training, train_launches = train_phase()
+    with phase("8b step-0 witness"):
+        step0 = step0_phase(training["losses"][0])
     with phase("9 training profile"):
         t_prof = train_profile_phase()
-    with phase("10 federation"):
+    with phase("10 federation"), _recording_lora_calls(path_calls):
         federation, fed_launches = federation_phase()
     with phase("10b split-training parity"):
         s_parity = split_parity_phase()
+    with phase("11 every LoRA shape of the paths against plain version"):
+        path_rows = path_shapes_phase(path_calls)
 
     def pick(kernel, op):
         return next(r for r in ch_rows if r["kernel"] == kernel
@@ -1397,6 +1656,7 @@ def main():
     q = next(r for r in rows if r["shape"] == "q" and r["dtype"] == "bfloat16")
     t512 = next(r for r in rows if r["shape"] == "train"
                 and r["dtype"] == "bfloat16")
+    t2048 = next(r for r in rows if r["shape"] == "fed")
     lora = _record_row("lora_matmul", "src/repro_torch/csrc/lora_matmul.cu",
                        "src/repro/kernels/lora/kernel.py:58",
                        sum(by_path("lora_matmul").values()), q)
@@ -1405,7 +1665,11 @@ def main():
                 at_train_shape={k: t512[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "max_abs_err")} | {"shape": "T=512 K=2048 O=2048 r=16 "
-                                                "bfloat16"})
+                                                "bfloat16"},
+                at_federation_shape={k: t2048[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err")} | {"shape": "T=2048 K=768 O=768 r=8 "
+                                                "float32"})
     kernels = [lora]
     for name, src, repl, fwd, bwd in (
             ("ssop_apply", "src/repro_torch/csrc/ssop.cu",
@@ -1448,10 +1712,12 @@ def main():
     record = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "lora_shapes": rows, "channel_shapes": ch_rows,
+        json.dump({"card": smi, "lora_shapes": rows, "lora_cut_sweep": sweep,
+                   "channel_shapes": ch_rows,
                    "flash_shapes": fa_rows, "serving": serving,
                    "profile": prof, "train_parity": t_parity,
-                   "training": training, "train_profile": t_prof,
+                   "training": training, "step0_witness": step0,
+                   "train_profile": t_prof, "lora_path_shapes": path_rows,
                    "federation": federation, "split_parity": s_parity,
                    **record}, f, indent=1, default=str)
     print(json.dumps(record))

@@ -13,6 +13,14 @@ perf queue).
 
 ``lora_matmul.launches`` counts kernel launches (never plain-version
 calls), so a run can show that its projections went through the kernel.
+
+The library has two routes behind the same C functions, chosen by shape:
+the decode kernels (8 rows of x a block, K split over a cluster) and, from
+T = ``_TILE_MIN_ROWS`` rows on when the 16-byte copies hold and r is a
+multiple of 8, the tile kernels (128 rows a block; bf16 on ``wgmma`` fed by
+TMA, f32 on fp32 FMAs).
+:func:`_uses_tiles` is the C rule's twin, so that a CPU test can pin the
+route each path's shapes take; :func:`_plan` asks the built library itself.
 """
 from __future__ import annotations
 
@@ -28,12 +36,44 @@ _SOURCES = ("lora_matmul.cu",)
 _FUNCS = {torch.bfloat16: "lora_matmul_bf16", torch.float32: "lora_matmul_f32"}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ROUTE_FUNCS = {torch.bfloat16: "lora_matmul_route_bf16",
+                torch.float32: "lora_matmul_route_f32"}
+_ROUTE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+
+# The cut of the route rule of csrc/lora_matmul.cu (kTileMinRows)
+_TILE_MIN_ROWS = 64
+_ROUTES = {"decode": 1, "tile": 2}
 
 
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return _build.load("lora_matmul", _SOURCES, {
-        name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()})
+    sigs = {name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()}
+    sigs.update({name: (_ROUTE_ARGTYPES, ctypes.c_int)
+                 for name in _ROUTE_FUNCS.values()})
+    sigs["lora_matmul_plan"] = (_PLAN_ARGTYPES, ctypes.c_int)
+    return _build.load("lora_matmul", _SOURCES, sigs)
+
+
+def _uses_tiles(T: int, K: int, O: int, r: int, dtype, aligned: bool) -> bool:
+    """Whether a call takes the tile kernels: T rows reach the cut, the
+    16-byte copies hold (``aligned``: K and O multiples of 16 bytes' worth
+    of elements of ``dtype``, x, w and a 16-byte aligned) and r is a
+    multiple of 8 (A's rows are read by TMA).  The twin of ``uses_tiles`` in
+    ``csrc/lora_matmul.cu``; K, O and dtype enter only through ``aligned``
+    (both types share the cut: phase 3's sweep)."""
+    return bool(aligned) and r % 8 == 0 and T >= _TILE_MIN_ROWS
+
+
+def _plan(T: int, K: int, O: int, r: int, dtype, aligned: bool):
+    """The C library's own answer for these shapes: ``None`` for the decode
+    kernels, else (rows, columns, grid x, grid y, grid z) of a tile kernel,
+    z the K split (needs the built library; held against
+    :func:`_uses_tiles` on the card)."""
+    out = (ctypes.c_int * 6)()
+    library().lora_matmul_plan(T, K, O, r, torch.empty((), dtype=dtype)
+                               .element_size(), int(aligned), out)
+    return tuple(out[1:]) if out[0] else None
 
 
 def lora_matmul(x, w, a, b, scale: float):
@@ -86,7 +126,11 @@ class LoRAMatmulFunction(torch.autograd.Function):
         return dx, None, da, db, None
 
 
-def _launch(x, w, a, b, scale: float):
+def _launch(x, w, a, b, scale: float, route=None):
+    """Launch the kernel on CUDA tensors.  ``route`` is for timing and
+    testing the routes only (``chip_smoke.py``, the card tests): ``None``
+    lets the shape choose, as every caller in the port does; ``"decode"``
+    or ``"tile"`` forces a route, an int a tile kernel's width."""
     if x.device.type != "cuda":
         raise ValueError(f"lora_matmul: no kernel for device {x.device}")
     fn_name = _FUNCS.get(x.dtype)
@@ -110,13 +154,18 @@ def _launch(x, w, a, b, scale: float):
     n_vec = 16 // x.element_size()
     vec = (K % n_vec == 0 and O % n_vec == 0
            and all(t.data_ptr() % 16 == 0 for t in (x, w, a)))
+    args = (x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), T, K, O, r, float(scale), int(vec))
+    if route is not None:
+        fn_name = _ROUTE_FUNCS[x.dtype]
+        args += (_ROUTES.get(route, route),)
     fn = getattr(library(), fn_name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), T, K, O, r, float(scale), int(vec), stream)
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"lora_matmul kernel launch failed: CUDA error "
-                           f"{err} (T={T}, K={K}, O={O}, r={r}, {x.dtype})")
+                           f"{err} (T={T}, K={K}, O={O}, r={r}, {x.dtype}, "
+                           f"route {route})")
     lora_matmul.launches += 1
     return y

@@ -39,29 +39,110 @@ def cuda():
 SHAPES = [(8, 4096, 4096, 16), (8, 4096, 1024, 16), (5, 4000, 1000, 16),
           (17, 300, 77, 3), (1, 64, 33, 0), (40, 1024, 512, 64), (3, 7, 5, 1),
           (8, 1024, 512, 12), (8, 512, 256, 40), (64, 512, 8192, 16)]
+# large T, the tile kernels: the paths' shapes (olmo-1b's step, a federation
+# client step's q/v and its adapter-free k/o), the cut straddled,
+# ragged T, K and O, ranks that are not a multiple of 8 (the decode kernels
+# take those) and one that is, and an unaligned O that keeps the decode
+# kernels at large T
+_CUT = ops._TILE_MIN_ROWS
+TILE_SHAPES = [(512, 2048, 2048, 16), (2048, 768, 768, 8), (2048, 768, 768, 0),
+               *[(t, 1024, 512, 16) for t in (_CUT - 1, _CUT, _CUT + 1)],
+               (1000, 4000, 1000, 16), (200, 776, 392, 3), (129, 512, 136, 64),
+               (300, 300, 77, 3)]
+# the tile widths csrc/lora_matmul.cu instantiates for each type
+TILE_WIDTHS = {torch.bfloat16: (128, 64), torch.float32: (128, 96, 64)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_lora_kernel_matches_plain(cuda, shape, dtype):
-    T, K, O, r = shape
-    g = torch.Generator(device=cuda).manual_seed(0)
+def _lora_inputs(cuda, T, K, O, r, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(T, K, generator=g, device=cuda).to(dtype)
     w = (torch.randn(K, O, generator=g, device=cuda) / K ** 0.5).to(dtype)
     a = (torch.randn(K, r, generator=g, device=cuda) / K ** 0.5).to(dtype)
     b = (torch.randn(r, O, generator=g, device=cuda) * 0.1).to(dtype)
+    return x, w, a, b
+
+
+def _lora_err(y, x, w, a, b, dtype):
+    """max |y - plain| against its tolerance: both accumulate in fp32 and
+    round once, so f32 differs by summation order only (1e-5 of the
+    output's scale) and bf16 by at most one rounding of the output (2^-7)."""
+    want = lora_matmul_ref(x, w, a, b, 2.0).float()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    return (y.float() - want).abs().max().item(), tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lora_kernel_matches_plain(cuda, shape, dtype):
+    x, w, a, b = _lora_inputs(cuda, *shape, dtype)
     before = ops.lora_matmul.launches
     y = ops.lora_matmul(x, w, a, b, 2.0)
     torch.cuda.synchronize()
     assert ops.lora_matmul.launches == before + 1
-    want = lora_matmul_ref(x, w, a, b, 2.0).float()
-    err = (y.float() - want).abs().max().item()
-    scale = want.abs().max().item()
-    # both accumulate in fp32 and round once: f32 differs by summation
-    # order only; bf16 by at most one rounding of the output
-    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    assert err <= tol * scale, (err, scale)
+    err, tol = _lora_err(y, x, w, a, b, dtype)
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("seed", [2, 3, 4])
+@pytest.mark.parametrize("shape", TILE_SHAPES[:3],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lora_bf16_tiles_hold_under_other_seeds(cuda, shape, seed):
+    """The paths' large-T shapes in bf16 (x W and x A on wgmma) again on
+    other inputs, to the same 2^-7 of the output's scale."""
+    x, w, a, b = _lora_inputs(cuda, *shape, torch.bfloat16, seed=seed)
+    y = ops.lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    err, tol = _lora_err(y, x, w, a, b, torch.bfloat16)
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(200, 776, 392, 3), (129, 512, 136, 64),
+                                   (300, 1024, 520, 33), (16, 2048, 256, 16),
+                                   (200, 776, 392, 8), (129, 512, 136, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lora_every_route_and_width_matches_plain(cuda, shape, dtype):
+    """Each tile width the library has (the waves pick one per shape) and
+    the decode kernels, forced through the private route argument, one
+    launch each; the tiles refuse a rank that is not a multiple of 8."""
+    x, w, a, b = _lora_inputs(cuda, *shape, dtype)
+    for route in ("decode", "tile", *TILE_WIDTHS[dtype]):
+        before = ops.lora_matmul.launches
+        if route != "decode" and shape[3] % 8:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ops._launch(x, w, a, b, 2.0, route=route)
+            assert ops.lora_matmul.launches == before
+            continue
+        y = ops._launch(x, w, a, b, 2.0, route=route)
+        torch.cuda.synchronize()
+        assert ops.lora_matmul.launches == before + 1
+        err, tol = _lora_err(y, x, w, a, b, dtype)
+        assert err <= tol, (route, err, tol)
+
+
+def test_lora_route_rule_matches_its_python_twin(cuda):
+    """The C library's choice of kernel against ``_uses_tiles``, over the
+    shapes above and the cut sweep's; a tile kernel's plan has 128 rows, a
+    width the library instantiates and the grid that covers T x O."""
+    shapes = SHAPES + TILE_SHAPES + [(t, k, k, 16) for t in (16, 32, 64, 128,
+                                                             256)
+                                     for k in (2048, 4096)]
+    for T, K, O, r in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            n = 16 // torch.empty((), dtype=dtype).element_size()
+            for aligned in {K % n == 0 and O % n == 0, False}:
+                got = ops._plan(T, K, O, r, dtype, aligned)
+                if not ops._uses_tiles(T, K, O, r, dtype, aligned):
+                    assert got is None, (T, K, O, r, dtype)
+                    continue
+                bo = got[1]
+                assert bo in TILE_WIDTHS[dtype], (T, K, O, r, dtype, got)
+                assert got[:4] == (128, bo, -(-O // bo), -(-T // 128)), \
+                    (T, K, O, r, dtype, got)
+                assert 1 <= got[4] <= 8, got
 
 
 def test_lora_kernel_rejects_what_it_does_not_take(cuda):
@@ -96,6 +177,27 @@ def test_lora_kernel_backward_matches_plain(cuda):
         out += [xs.grad, as_.grad, bs.grad]
     for p, q in zip(got, want):
         assert (p - q).abs().max() <= 1e-5 * q.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lora_kernel_backward_at_the_training_shape(cuda, dtype):
+    """olmo-1b's projection (T 512, K = O = 2048, r 16) through the tile
+    kernel, backward by the Function's products, against autograd through
+    the plain version: f32 to 1e-5 of each gradient's scale, bf16 to 2^-7
+    (the Function's products round in bf16, the plain side's in fp32)."""
+    x, w, a, b = _lora_inputs(cuda, 512, 2048, 2048, 16, dtype, seed=1)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    gy = torch.randn(512, 2048, generator=g, device=cuda).to(dtype)
+    got, want = [], []
+    for fn, out in ((ops.lora_matmul, got), (lora_matmul_ref, want)):
+        xs, as_, bs = (t.clone().requires_grad_(True) for t in (x, a, b))
+        fn(xs, w, as_, bs, 2.0).backward(gy)
+        out += [xs.grad, as_.grad, bs.grad]
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for p, q in zip(got, want):
+        assert (p.float() - q.float()).abs().max() <= \
+            tol * q.float().abs().max()
 
 
 # ---------------------------------------------------------------------------
