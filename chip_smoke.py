@@ -6,6 +6,10 @@ ELSA federation of full-width bert-base
 (``Federation(..., backend="reference").run("elsa")``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --channel-times-of CHECKOUT
+
+The second form only times the channel's kernels (phase 3b's timed rows)
+of the package in another checkout, for comparing two versions in one call.
 
 Phases, each of which raises (and so exits non-zero) on any failed check:
 
@@ -22,8 +26,12 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    routes; then the cut sweep: the decode and the tile kernels, both
    checked and timed, at T 16 to 256;
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
-   against their plain versions, forward and backward, at the training
-   shapes and ragged ones, in bf16 and f32, with times and bounds;
+   against their plain versions, forward and backward, at olmo-1b's and the
+   federation's shapes and ragged ones, in bf16 and f32, each path's shapes
+   timed in its own type with bounds, the route of every SS-OP and scatter
+   call (the library's rule held against its Python twin), then the sweep
+   of the tile routes' configurations (SS-OP's cluster size and rows a
+   tile, the scatter's rows a block), each checked and timed;
 3c. flash attention against its plain version, forward (o, m, l) and
    gradient (the Function against autograd through the plain version), at
    bert-base's and olmo-1b's shapes, ragged lengths, GQA at llama3-8b's
@@ -78,7 +86,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+# --channel-times-of CHECKOUT times that checkout's channel kernels instead
+SRC = os.path.join(
+    os.path.abspath(sys.argv[sys.argv.index("--channel-times-of") + 1])
+    if "--channel-times-of" in sys.argv else ROOT, "src")
+sys.path.insert(0, SRC)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -404,69 +416,93 @@ def _channel_bound(op, T, D, r, Y, Z, dtype):
                                        else "operations")
 
 
+# (case, T, D, r, Y, Z): olmo-1b's channel (the launcher's 8 x 64 tokens;
+# SS-OP r 16; Y 3, Z 325), the federation's (bert-base, 16 x 128 tokens; r 8;
+# Y 3, Z = max(4, int(768 / (2.1 * 3))) = 121) and ragged ones.  The two
+# paths' own shapes are timed in the type each path runs.
+CHANNEL_CASES = [("train", 512, 2048, 16, 3, 325),
+                 ("federation", 2048, 768, 8, 3, 121),
+                 ("ragged Y4", 5, 2000, 16, 4, 37),
+                 ("ragged Y5", 5, 2000, 16, 5, 37)]
+CHANNEL_TIMED = {("train", torch.bfloat16), ("federation", torch.float32)}
+
+
+def _channel_ops(T, D, r, Y, Z, dtype, g):
+    """The six channel ops at these shapes, on inputs drawn from ``g``:
+    ``[(kernel, op, fn, plain, library or None, make_args)]``, where a
+    quarter of the buckets of every sketch are zero, so the median meets
+    ties.  Uses only the wrappers' public calls, so that
+    ``--channel-times-of`` can time another checkout with it."""
+    plan = make_plan(D, Y, Z, seed=1, device="cuda")
+    b, s = plan.bucket, plan.sign
+    basis = torch.linalg.qr(torch.randn(D, r, generator=g, device="cuda"))[0]
+    v = torch.linalg.qr(torch.randn(r, r, generator=g, device="cuda"))[0]
+    w = (v.T - torch.eye(r, device="cuda")).to(dtype).contiguous()
+    wt = w.T.contiguous()
+    uu = basis.to(dtype).contiguous()
+    sel = selection_matrices(plan).to(dtype)
+
+    def h_():
+        return torch.randn(T, D, generator=g, device="cuda").to(dtype)
+
+    def sk_():
+        u = torch.randn(T, Y, Z, generator=g, device="cuda").to(dtype)
+        u[:, :, :max(1, Z // 4)] = 0
+        return u
+
+    return plan, uu, w, [
+        ("ssop_apply", "ssop forward",
+         lambda h: ssop_ops.ssop_apply_td(h, uu, w),
+         lambda h: ssop_apply_ref(h, uu, w), None, lambda: (h_(),)),
+        ("ssop_apply", "ssop backward",
+         lambda gy: ssop_ops.ssop_apply_td(gy, uu, wt),
+         lambda gy: ssop_apply_ref(gy, uu, wt), None, lambda: (h_(),)),
+        ("sketch_scatter", "compress",
+         lambda h: cs_ops.sketch_scatter(h, plan),
+         lambda h: cs_ref.compress_ref(h, b, s, Z),
+         lambda h: torch.einsum("td,ydz->tyz", h, sel),
+         lambda: (h_(),)),
+        ("sketch_scatter", "median backward",
+         lambda gy, u: cs_ops.sketch_scatter(gy, plan, u=u),
+         lambda gy, u: cs_ref.median_backward_ref(gy, u, b, s), None,
+         lambda: (h_(), sk_())),
+        ("sketch_gather", "decompress",
+         lambda u: cs_ops.sketch_gather(u, plan),
+         lambda u: cs_ref.decompress_ref(u, b, s), None,
+         lambda: (sk_(),)),
+        ("sketch_gather", "compress backward",
+         lambda u: cs_ops.sketch_gather(u, plan, median=False),
+         lambda u: cs_ref.gather_sum_ref(u, b, s),
+         lambda u: torch.einsum("tyz,ydz->td", u, sel),
+         lambda: (sk_(),)),
+    ]
+
+
+def _arg_sets(args, make):
+    """``args`` and enough fresh copies that together they exceed L2 twice."""
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    return [args] + [make() for _ in range(
+        max(1, -(-2 * L2_BYTES // nbytes)) - 1)]
+
+
 def channel_kernel_phase():
     """SS-OP (forward, and its backward: the same kernel with Wᵀ), the
     scatter kernel (compress; the median's backward) and the gather kernel
     (decompress; compress's backward), each against its plain version on the
-    same inputs.  Decompress only gathers, negates and compares, so it is
-    held to equality; the others sum in fp32 and round once on both sides,
-    so f32 is held to 1e-5 and bf16 to 2^-7 of the output's largest value
-    (summation order, and at most one bf16 rounding of an output).  A
-    quarter of the buckets of every sketch are zero, so the median meets
-    ties.  Timed (bf16 at the training shapes only) as in phase 3, rotating
-    over input copies that exceed L2."""
-    cases = [("train", 512, 2048, 16, 3, 325),
-             ("ragged Y4", 5, 2000, 16, 4, 37),
-             ("ragged Y5", 5, 2000, 16, 5, 37)]
+    same inputs, at olmo-1b's and the federation's shapes and ragged ones,
+    in bf16 and f32.  Decompress only gathers, negates and compares, so it
+    is held to equality; the others sum in fp32 and round once on both
+    sides, so f32 is held to 1e-5 and bf16 to 2^-7 of the output's largest
+    value (summation order, and at most one bf16 rounding of an output).
+    The route each SS-OP and scatter call takes is printed and the
+    library's rule held against its Python twin.  Each path's shapes are
+    timed in its own type (olmo-1b bf16, the federation f32) as in phase 3,
+    rotating over input copies that exceed L2."""
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for case, T, D, r, Y, Z in cases:
-            plan = make_plan(D, Y, Z, seed=1, device="cuda")
-            b, s = plan.bucket, plan.sign
-            basis = torch.linalg.qr(torch.randn(D, r, generator=g,
-                                                device="cuda"))[0]
-            v = torch.linalg.qr(torch.randn(r, r, generator=g,
-                                            device="cuda"))[0]
-            w = (v.T - torch.eye(r, device="cuda")).to(dtype).contiguous()
-            wt = w.T.contiguous()
-            uu = basis.to(dtype).contiguous()
-            sel = selection_matrices(plan).to(dtype)
-
-            def h_():
-                return torch.randn(T, D, generator=g, device="cuda").to(dtype)
-
-            def sk_():
-                u = torch.randn(T, Y, Z, generator=g, device="cuda").to(dtype)
-                u[:, :, :max(1, Z // 4)] = 0
-                return u
-
-            table = [
-                ("ssop_apply", "ssop forward",
-                 lambda h: ssop_ops.ssop_apply_td(h, uu, w),
-                 lambda h: ssop_apply_ref(h, uu, w), None, lambda: (h_(),)),
-                ("ssop_apply", "ssop backward",
-                 lambda gy: ssop_ops.ssop_apply_td(gy, uu, wt),
-                 lambda gy: ssop_apply_ref(gy, uu, wt), None, lambda: (h_(),)),
-                ("sketch_scatter", "compress",
-                 lambda h: cs_ops.sketch_scatter(h, plan),
-                 lambda h: cs_ref.compress_ref(h, b, s, Z),
-                 lambda h: torch.einsum("td,ydz->tyz", h, sel),
-                 lambda: (h_(),)),
-                ("sketch_scatter", "median backward",
-                 lambda gy, u: cs_ops.sketch_scatter(gy, plan, u=u),
-                 lambda gy, u: cs_ref.median_backward_ref(gy, u, b, s), None,
-                 lambda: (h_(), sk_())),
-                ("sketch_gather", "decompress",
-                 lambda u: cs_ops.sketch_gather(u, plan),
-                 lambda u: cs_ref.decompress_ref(u, b, s), None,
-                 lambda: (sk_(),)),
-                ("sketch_gather", "compress backward",
-                 lambda u: cs_ops.sketch_gather(u, plan, median=False),
-                 lambda u: cs_ref.gather_sum_ref(u, b, s),
-                 lambda u: torch.einsum("tyz,ydz->td", u, sel),
-                 lambda: (sk_(),)),
-            ]
+        for case, T, D, r, Y, Z in CHANNEL_CASES:
+            plan, _, _, table = _channel_ops(T, D, r, Y, Z, dtype, g)
             for kernel, op, fn, plain, lib, make in table:
                 args = make()
                 n0 = getattr(_wrapper(kernel), "launches")
@@ -485,12 +521,11 @@ def channel_kernel_phase():
                                   f"err {err:.3e} > {tol:.3e}")
                 row = dict(kernel=kernel, op=op, case=case, T=T, D=D, r=r,
                            Y=Y, Z=Z, dtype=str(dtype).removeprefix("torch."),
-                           max_abs_err=err, tol=tol)
+                           max_abs_err=err, tol=tol,
+                           route=_channel_route(op, T, D, r, Y, Z, dtype))
                 msg = ""
-                if case == "train" and dtype == torch.bfloat16:
-                    nbytes = sum(t.numel() * t.element_size() for t in args)
-                    sets = [args] + [make() for _ in range(
-                        max(1, -(-2 * L2_BYTES // nbytes)) - 1)]
+                if (case, dtype) in CHANNEL_TIMED:
+                    sets = _arg_sets(args, make)
                     row["ms"] = _time_ms(fn, sets)
                     row["plain_ms"] = _time_ms(plain, sets)
                     row["library_ms"] = _time_ms(lib, sets) if lib else None
@@ -505,9 +540,145 @@ def channel_kernel_phase():
                            f"{row['bound_ms'] / row['ms']:.1%} of bound")
                     del sets
                 rows.append(row)
-                print(f"{kernel:14s} {op:17s} {case:9s} {row['dtype']:8s} "
-                      f"err {err:.3e} (tol {tol:.3e}){msg}", flush=True)
+                print(f"{kernel:14s} {op:17s} {case:10s} {row['dtype']:8s} "
+                      f"err {err:.3e} (tol {tol:.3e}){msg}; "
+                      f"{row['route'] or 'gather (4 rows a block)'}",
+                      flush=True)
     return rows
+
+
+def _channel_route(op, T, D, r, Y, Z, dtype):
+    """The route the library takes for an SS-OP or scatter call of these
+    shapes (16-byte aligned operands), checked against its Python twin, as
+    text; None for the gather, which has one."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if op.startswith("ssop"):
+        plan = ssop_ops._plan(T, D, r, dtype, True)
+        twin = ssop_ops._tile_plan(T, D, r, dtype, True)
+        check((plan is None) == (twin is None)
+              and (plan is None or (plan[:2], plan[3]) == (twin[:2], twin[2])),
+              f"ssop route of T={T} D={D} r={r} {dtype}: library {plan}, "
+              f"twin {twin}")
+        if plan is None:
+            return "rows route (4 rows a block)"
+        C, R, tiles, Ds, smem = plan
+        return (f"tile route: cluster {C} x slice {Ds}, {R} rows a tile, "
+                f"{tiles} tiles ({C * tiles} blocks, "
+                f"{C * tiles / sms:.2f} an SM), {smem / 1024:.1f} KB")
+    if op not in ("compress", "median backward"):
+        return None
+    median_bwd = op == "median backward"
+    got = cs_ops._plan_scatter(T, D, Y, Z, median_bwd, dtype)
+    rows = cs_ops._scatter_plan(T, D, Y, Z, median_bwd, dtype)
+    el = torch.empty((), dtype=dtype).element_size()
+    check(got is not None and got[0] == rows
+          and (not rows or got[2] == cs_ops._scatter_smem(
+              rows, D, Y, Z, median_bwd, el)),
+          f"scatter route of T={T} D={D} Y={Y} Z={Z} {op} {dtype}: library "
+          f"{got}, twin {rows}")
+    if not rows:
+        return f"rows route (4 rows a block), {got[1]} blocks"
+    return (f"tile route: {rows} rows a block, {got[1]} blocks "
+            f"({got[1] / sms:.2f} an SM), {got[2] / 1024:.1f} KB")
+
+
+def channel_sweep():
+    """The tile routes' configurations at each path's timed shape: SS-OP's
+    cluster size (1, 2, 4, 8) x rows a tile (8, 16, 32), forward, and the
+    scatter's rows a block (1, 2, 4, 8, and the rows route), compress and
+    the median backward; each checked against the plain version as in
+    phase 3b and timed as there.  The rule's own choice is marked."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for case, T, D, r, Y, Z in CHANNEL_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if (case, dtype) not in CHANNEL_TIMED:
+                continue
+            plan, uu, w, table = _channel_ops(T, D, r, Y, Z, dtype, g)
+            el = torch.empty((), dtype=dtype).element_size()
+            tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+            chosen = ssop_ops._tile_plan(T, D, r, dtype, True)
+            h = table[0][5]()
+            sets = _arg_sets(h, table[0][5])
+            want = ssop_apply_ref(h[0], uu, w).float()
+            for C in (1, 2, 4, 8):
+                for R in (8, 16, 32):
+                    Ds = ssop_ops._round_up(-(-D // C), 16)
+                    if ssop_ops._tile_smem(Ds, R, r, el, C) > \
+                            ssop_ops._MAX_SMEM:
+                        continue
+
+                    def fn(x, C=C, R=R):
+                        return ssop_ops._launch(x, uu, w, route="tile",
+                                                cluster=C, rows=R)
+                    err = (fn(h[0]).float() - want).abs().max().item()
+                    check(err <= tol * want.abs().max().item(),
+                          f"ssop sweep C={C} R={R} {case}: err {err:.3e}")
+                    ms = _time_ms(fn, sets)
+                    mark = "  <- the rule" if chosen[:2] == (C, R) else ""
+                    out.append(dict(kernel="ssop_apply", case=case, C=C, R=R,
+                                    ms=ms, max_abs_err=err,
+                                    rule=bool(mark)))
+                    print(f"ssop sweep {case:10s} cluster {C} rows {R:2d}: "
+                          f"{ms * 1e3:7.2f} us ({-(-T // R)} tiles){mark}",
+                          flush=True)
+            for op, mi in (("compress", 2), ("median backward", 3)):
+                median_bwd = op == "median backward"
+                _, _, _, plain, _, make = table[mi]
+                args = make()
+                sets = _arg_sets(args, make)
+                want = plain(*args).float()
+                rule = cs_ops._scatter_plan(T, D, Y, Z, median_bwd, dtype)
+                for R in ("rows", 1, 2, 4, 8):
+                    if R != "rows" and cs_ops._scatter_smem(
+                            R, D, Y, Z, median_bwd, el) > \
+                            cs_ops.MAX_SHARED_BYTES:
+                        continue
+
+                    def fn(x, u=None, R=R):
+                        o = torch.empty(x.shape[:-1] + (Y, Z), dtype=x.dtype,
+                                        device=x.device)
+                        cs_ops._launch("scatter", x, u, plan, o, x.shape[0],
+                                       rows=R)
+                        return o
+                    err = (fn(*args).float() - want).abs().max().item()
+                    check(err <= tol * want.abs().max().item(),
+                          f"scatter sweep {op} rows {R} {case}: err "
+                          f"{err:.3e}")
+                    ms = _time_ms(fn, sets)
+                    mark = ("  <- the rule" if rule == (0 if R == "rows"
+                                                        else R) else "")
+                    out.append(dict(kernel="sketch_scatter", op=op,
+                                    case=case, rows=R, ms=ms,
+                                    max_abs_err=err, rule=bool(mark)))
+                    print(f"scatter sweep {case:10s} {op:15s} rows {R!s:4s}:"
+                          f" {ms * 1e3:7.2f} us{mark}", flush=True)
+                del sets
+    return out
+
+
+def channel_times():
+    """``--channel-times-of``: each channel op's device time at each path's
+    timed shape, as phase 3b times it, through the public calls only (so a
+    checkout without this PR's routes can be timed the same way); one JSON
+    line."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    out = []
+    for case, T, D, r, Y, Z in CHANNEL_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if (case, dtype) not in CHANNEL_TIMED:
+                continue
+            _, _, _, table = _channel_ops(T, D, r, Y, Z, dtype, g)
+            for kernel, op, fn, plain, _, make in table:
+                args = make()
+                err = (fn(*args).float() - plain(*args).float()).abs().max()
+                ms = _time_ms(fn, _arg_sets(args, make))
+                out.append(dict(kernel=kernel, op=op, case=case,
+                                dtype=str(dtype).removeprefix("torch."),
+                                ms=ms, max_abs_err=err.item()))
+                print(f"{kernel:14s} {op:17s} {case:10s} {ms * 1e3:8.2f} us",
+                      flush=True)
+    print(json.dumps({"channel_times": out, "src": SRC}))
 
 
 def _wrapper(kernel):
@@ -1597,6 +1768,12 @@ def _record_row(name, source, replaces, launches, row):
 
 
 def main():
+    if "--channel-times-of" in sys.argv:
+        with phase("1 device"):
+            device_phase()
+        with phase("3b channel kernel times"):
+            channel_times()
+        return
     with phase("1 device"):
         smi = device_phase()
     with phase("2 build"):
@@ -1606,6 +1783,7 @@ def main():
         sweep = lora_cut_sweep()
     with phase("3b channel kernels against plain versions"):
         ch_rows = channel_kernel_phase()
+        ch_sweep = channel_sweep()
     with phase("3c flash attention against plain version"):
         fa_rows = flash_kernel_phase()
     with phase("init full llama3-8b"):
@@ -1641,10 +1819,13 @@ def main():
     with phase("11 every LoRA shape of the paths against plain version"):
         path_rows = path_shapes_phase(path_calls)
 
-    def pick(kernel, op):
+    def pick(kernel, op, case="train", dtype="bfloat16"):
         return next(r for r in ch_rows if r["kernel"] == kernel
-                    and r["op"] == op and r["case"] == "train"
-                    and r["dtype"] == "bfloat16")
+                    and r["op"] == op and r["case"] == case
+                    and r["dtype"] == dtype)
+
+    timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "max_abs_err")
 
     def by_path(name):
         out = {"train": train_launches[name],
@@ -1684,11 +1865,15 @@ def main():
         row = _record_row(name, src, repl, sum(by_path(name).values()),
                           pick(name, fwd))
         b = pick(name, bwd)
+        fed = {op: pick(name, op, "federation", "float32")
+               for op in (fwd, bwd)}
         row.update(shape=f"{fwd}, T=512 D=2048 r=16 Y=3 Z=325 bfloat16",
                    launches_by_path=by_path(name),
-                   backward={k: b[k] for k in (
-                       "ms", "plain_ms", "library_ms", "bound_ms",
-                       "bound_by", "max_abs_err")} | {"op": bwd})
+                   backward={k: b[k] for k in timed} | {"op": bwd},
+                   at_federation_shape={
+                       op: {k: r_[k] for k in timed}
+                       for op, r_ in fed.items()} | {
+                       "shape": "T=2048 D=768 r=8 Y=3 Z=121 float32"})
         kernels.append(row)
     bert_case = fa_rows[0]
     flash = _record_row("flash_attention",
@@ -1713,7 +1898,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "lora_shapes": rows, "lora_cut_sweep": sweep,
-                   "channel_shapes": ch_rows,
+                   "channel_shapes": ch_rows, "channel_sweep": ch_sweep,
                    "flash_shapes": fa_rows, "serving": serving,
                    "profile": prof, "train_parity": t_parity,
                    "training": training, "step0_witness": step0,

@@ -23,15 +23,21 @@ from repro_torch.kernels.count_sketch.ref import median_rows
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SketchPlan:
-    """The hash rows of a sketch, and their inverse (CSR) index: for each
-    (y, b), ``idx[ptr[y Z + b]:ptr[y Z + b + 1]]`` are the d with
-    ``bucket[y, d] = b``, ascending.  The index is built from ``bucket``
-    when the plan is made and lives on its device."""
+    """The hash rows of a sketch, and their inverse (CSR) index with each
+    entry's sign folded in: for each (y, b),
+    ``sidx[ptr[y Z + b]:ptr[y Z + b + 1]]`` are the d with
+    ``bucket[y, d] = b``, ascending, each stored as d where
+    ``sign[y, d] = +1`` and as ``~d`` (that is ``-d - 1``) where it is -1.
+    The index is built from ``bucket`` and ``sign`` when the plan is made
+    and lives on their device; ``order`` lists the (y, b) longest list
+    first (ties by (y, b)), the order in which the scatter kernel's threads
+    take them."""
     bucket: torch.Tensor    # (Y, D) int32 in [0, Z)
     sign: torch.Tensor      # (Y, D) float32 in {-1, +1}
     z: int
     ptr: torch.Tensor = dataclasses.field(init=False, repr=False)
-    idx: torch.Tensor = dataclasses.field(init=False, repr=False)
+    sidx: torch.Tensor = dataclasses.field(init=False, repr=False)
+    order: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         Y, D = self.bucket.shape
@@ -42,11 +48,16 @@ class SketchPlan:
                 raise ValueError(f"bucket ids must lie in [0, {self.z})")
         key = (b + self.z * torch.arange(Y, device=b.device)[:, None]
                ).reshape(-1)
-        order = torch.argsort(key, stable=True)
+        entries = torch.argsort(key, stable=True)     # (y, d) by list
         counts = torch.bincount(key, minlength=Y * self.z)
         ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        idx = entries % D
+        negative = self.sign.reshape(-1)[entries] < 0
         object.__setattr__(self, "ptr", ptr.to(torch.int32))
-        object.__setattr__(self, "idx", (order % D).to(torch.int32))
+        object.__setattr__(self, "sidx", torch.where(
+            negative, -idx - 1, idx).to(torch.int32))
+        object.__setattr__(self, "order", torch.argsort(
+            -counts, stable=True).to(torch.int32))
 
     @property
     def y(self) -> int:

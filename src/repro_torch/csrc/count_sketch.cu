@@ -14,7 +14,8 @@
 //
 //   scatter, one output (t, y, z) per thread and pass over its bucket's
 //   feature list, read from the plan's inverse index (CSR: for each (y, z)
-//   the d with bucket[y, d] = z, ascending), so every output sums its own
+//   the d with bucket[y, d] = z, ascending, each stored as a signed index:
+//   d where sign[y, d] = +1, ~d where it is -1), so every output sums its own
 //   list in a fixed order, with no atomics:
 //     mode 0, compress:        out[t,y,z] = sum_d sign[y,d] x[t,d]
 //     mode 1, median backward: out[t,y,z] = sum_d sign[y,d] m[t,y,d] x[t,d]
@@ -32,15 +33,33 @@
 // The median network's gradient follows JAX's rule for min and max: at a tie
 // each input takes half.  The backward replays the network forward, keeping
 // the outcome of each compare, then carries the output's weight back through
-// the compares in reverse.
+// the compares in reverse, for all Y inputs at once.
 //
 // What bounds them on an H100: at the training shapes (T = 512, D = 2048,
 // Y = 3, Z = 325) each moves T D + T Y Z elements (3 MB in bf16) for about
-// 2 T Y D flops: the bytes bound them (about 1 us).  A block owns kRows = 4
-// rows: it copies their x and u rows into shared memory once as fp32 (so
-// the scattered reads by bucket hit shared memory, not device memory) and
-// reuses each index and sign it reads for all 4 rows.  Sums are fp32,
-// rounded once to the input type.
+// 2 T Y D flops: the bytes bound them (about 1 us).  Sums are fp32, rounded
+// once to the input type.  The median backward also runs T D median
+// networks with their backward, some 70 instructions each: at these shapes
+// that costs the card more time than its bytes.
+//
+// The scatter (the tile route, chosen by scatter_plan()): a block of 512
+// threads owns R rows (the most of 8, 4, 2 and 1 for compress, of 4, 2 and
+// 1 for the median backward, that leave 128 blocks).  Its rows
+// of x, in mode 1 of u, and the plan's ptr, order and sidx are contiguous in
+// memory: each comes in by one 1-D bulk asynchronous copy (cp.async.bulk,
+// reported to an mbarrier) of its 16-byte aligned middle, the few bytes at
+// either end by the threads, kept in shared memory in their own type.  Each
+// index entry is read once and serves all R rows.  Mode 1 runs in two
+// stages: a coalesced sweep over the columns runs each (t, d) median network
+// once, for all y, and leaves sign[y,d] m[t,y,d] x[t,d] in shared memory
+// (fp32, R x Y x D); then each (y, z) sums its list from there.  The threads
+// take the lists longest first (the plan's order), so the lists of a warp
+// are about equally long, and the sums leave through shared memory in
+// coalesced stores.  Where no tile fits in shared memory, the first,
+// simpler kernel takes the call (the rows route: 4 rows a block, copied as
+// fp32, the median network replayed for every list entry).
+//
+// The gather keeps the first design: 4 rows of u in shared memory a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,9 +67,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 4;     // rows of x / u per block
+constexpr int kThreads = 256;      // rows route, gather
+constexpr int kTileThreads = 512;  // tile route
+constexpr int kRows = 4;     // rows of x / u per block (rows route, gather)
 constexpr int kMaxY = 8;
+// rows a block of the tile route at most (compress, the median backward),
+// and the blocks they leave at least
+constexpr int kMaxScatterRows[2] = {8, 4};
+constexpr int kScatterTargetBlocks = 128;
+constexpr int kMaxSmem = 232448;          // dynamic shared memory of a block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -94,13 +119,12 @@ __device__ __forceinline__ float median_network(float (&v)[kY],
   return __fmul_rn(0.5f, __fadd_rn(v[kY / 2 - 1], v[kY / 2]));
 }
 
-// The weight row `y` of the input takes in the median, given the outcomes
-// of the forward compares: the output's unit gradient carried back through
-// the network, a tie splitting it in halves.
+// The weights the Y inputs take in the median, given the outcomes of the
+// forward compares: the output's unit gradient carried back through the
+// network, a tie splitting it in halves.
 template <int kY>
-__device__ __forceinline__ float median_weight(const int (&rel)[kY * kY],
-                                               int y) {
-  float g[kY];
+__device__ __forceinline__ void median_weights(const int (&rel)[kY * kY],
+                                               float (&g)[kY]) {
 #pragma unroll
   for (int i = 0; i < kY; ++i) g[i] = 0.f;
   if (kY % 2) {
@@ -115,34 +139,27 @@ __device__ __forceinline__ float median_weight(const int (&rel)[kY * kY],
     for (int j = kY - 2 - i; j >= 0; --j) {
       const float glo = g[j], ghi = g[j + 1];
       const int c = rel[i * kY + j];
-      if (c == 0) {          // a was the min: lo <- a, hi <- b
-        g[j] = glo;
-        g[j + 1] = ghi;
-      } else if (c == 1) {   // a was the max
+      if (c == 1) {          // a was the max: lo <- b, hi <- a
         g[j] = ghi;
         g[j + 1] = glo;
-      } else {               // tie: each input takes half of each output
+      } else if (c == 2) {   // tie: each input takes half of each output
         const float half = 0.5f * (glo + ghi);
         g[j] = half;
         g[j + 1] = half;
       }
     }
-  float out = 0.f;
-#pragma unroll
-  for (int i = 0; i < kY; ++i)
-    if (i == y) out = g[i];
-  return out;
 }
 
 // ---------------------------------------------------------------------------
 // scatter: out (n_rows, Y, Z) from x (n_rows, D) [and u (n_rows, Y, Z)]
 // ---------------------------------------------------------------------------
 
-// kY > 0 is the median backward (mode 1) for Y = kY; kY == 0 is compress.
+// The rows route.  kY > 0 is the median backward (mode 1) for Y = kY; kY ==
+// 0 is compress.
 template <typename T, int kY>
 __global__ void __launch_bounds__(kThreads)
 sketch_scatter_kernel(const T* __restrict__ x, const T* __restrict__ u,
-                      const int* __restrict__ ptr, const int* __restrict__ idx,
+                      const int* __restrict__ ptr, const int* __restrict__ sidx,
                       const float* __restrict__ sign,
                       const int* __restrict__ bucket, T* __restrict__ out,
                       int n_rows, int D, int Y, int Z) {
@@ -164,8 +181,9 @@ sketch_scatter_kernel(const T* __restrict__ x, const T* __restrict__ u,
     for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
     const int end = ptr[yz + 1];
     for (int k = ptr[yz]; k < end; ++k) {
-      const int d = idx[k];
-      const float s = sign[(size_t)y * D + d];
+      const int e = sidx[k];
+      const int d = e < 0 ? ~e : e;
+      const float s = e < 0 ? -1.f : 1.f;
       if constexpr (kY == 0) {
 #pragma unroll
         for (int t = 0; t < kRows; ++t) acc[t] += s * xs[t * D + d];
@@ -184,8 +202,14 @@ sketch_scatter_kernel(const T* __restrict__ x, const T* __restrict__ u,
 #pragma unroll
           for (int yy = 0; yy < kY; ++yy)
             v[yy] = sg[yy] * us[t * YZ + yy * Z + bk[yy]];
+          float m[kY];
           median_network<kY, true>(v, rel);
-          acc[t] += s * (median_weight<kY>(rel, y) * xs[t * D + d]);
+          median_weights<kY>(rel, m);
+          float my = 0.f;   // m[y], selected without a local-memory index
+#pragma unroll
+          for (int yy = 0; yy < kY; ++yy)
+            if (yy == y) my = m[yy];
+          acc[t] += s * (my * xs[t * D + d]);
         }
       }
     }
@@ -193,6 +217,240 @@ sketch_scatter_kernel(const T* __restrict__ x, const T* __restrict__ u,
     for (int t = 0; t < kRows; ++t)
       if (t < n_t) out[(size_t)(row0 + t) * YZ + yz] = from_f<T>(acc[t]);
   }
+}
+
+// The tile route.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// A contiguous run of `bytes` at `src`, to be kept in shared memory from
+// `dst` + src % 16 on (so that its 16-byte aligned middle lands aligned):
+// `head` bytes before the middle, `body` bytes of middle (a multiple of 16,
+// for one bulk copy) and the rest after it.
+struct Run {
+  const unsigned char* src;
+  unsigned char* dst;
+  int head, body, bytes;
+};
+
+__device__ __forceinline__ Run make_run(const void* src, int bytes,
+                                        unsigned char* region) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  Run run;
+  run.src = static_cast<const unsigned char*>(src);
+  run.dst = region + a % 16;
+  run.head = (int)((16 - a % 16) % 16);
+  run.head = run.head < bytes ? run.head : bytes;
+  run.body = (bytes - run.head) & ~15;
+  run.bytes = bytes;
+  return run;
+}
+
+// thread 0: the run's middle by one bulk copy, reported to `bar`
+__device__ __forceinline__ void copy_body(const Run& run, uint64_t* bar) {
+  if (run.body > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(run.dst + run.head)),
+        "l"(run.src + run.head), "r"(run.body), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// every thread: the run's ends, element by element
+template <typename T>
+__device__ __forceinline__ void copy_ends(const Run& run) {
+  constexpr int el = (int)sizeof(T);
+  const int n_head = run.head / el;
+  const int n_tail = (run.bytes - run.head - run.body) / el;
+  const T* s = reinterpret_cast<const T*>(run.src);
+  T* d = reinterpret_cast<T*>(run.dst);
+  const int tail0 = (run.head + run.body) / el;
+  for (int i = threadIdx.x; i < n_head + n_tail; i += blockDim.x) {
+    const int e = i < n_head ? i : tail0 + i - n_head;
+    d[e] = s[e];
+  }
+}
+
+// Byte offsets in a tile block's shared memory: the mbarrier, the plan's
+// ptr (Y Z + 1), order (Y Z) and sidx (Y D), R rows of x, in mode 1 R rows
+// of u and the (R, Y, D) fp32 values of the first stage, then the R rows of
+// the output.  Each run copied in has 16 bytes of room for its shift
+// (src % 16).
+struct ScatterLayout {
+  int ptr, order, sidx, xs, us, vs, ob, total;
+};
+
+__host__ __device__ inline int round16(int a) { return (a + 15) / 16 * 16; }
+
+__host__ __device__ inline ScatterLayout scatter_layout(int R, int D, int Y,
+                                                        int Z, int mode,
+                                                        int el) {
+  ScatterLayout L;
+  L.ptr = 16;
+  L.order = L.ptr + round16((Y * Z + 1) * 4) + 16;
+  L.sidx = L.order + round16(Y * Z * 4) + 16;
+  L.xs = L.sidx + round16(Y * D * 4) + 16;
+  L.us = L.xs + round16(R * D * el) + 16;
+  L.vs = L.us + (mode ? round16(R * Y * Z * el) + 16 : 0);
+  L.ob = L.vs + (mode ? R * Y * D * 4 : 0);
+  L.total = L.ob + round16(R * Y * Z * el);
+  return L;
+}
+
+// kY > 0: the median backward (mode 1) for Y = kY; kY == 0: compress.
+template <typename T, int kY, int kR>
+__global__ void __launch_bounds__(kTileThreads)
+sketch_scatter_tile_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                           const int* __restrict__ ptr,
+                           const int* __restrict__ order,
+                           const int* __restrict__ sidx,
+                           const float* __restrict__ sign,
+                           const int* __restrict__ bucket, T* __restrict__ out,
+                           int n_rows, int D, int Y, int Z) {
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  unsigned char* smem = tile_smem;
+  constexpr int kMode = kY > 0 ? 1 : 0;
+  const ScatterLayout L = scatter_layout(kR, D, Y, Z, kMode, (int)sizeof(T));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int YZ = Y * Z;
+  const int row0 = blockIdx.x * kR;
+  const int n_t = min(kR, n_rows - row0);
+
+  const Run rp = make_run(ptr, (YZ + 1) * 4, smem + L.ptr);
+  const Run ro = make_run(order, YZ * 4, smem + L.order);
+  const Run rs = make_run(sidx, Y * D * 4, smem + L.sidx);
+  const Run rx = make_run(x + (size_t)row0 * D, n_t * D * (int)sizeof(T),
+                          smem + L.xs);
+  Run ru = rx;
+  if (kMode)
+    ru = make_run(u + (size_t)row0 * YZ, n_t * YZ * (int)sizeof(T),
+                  smem + L.us);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+        smem_u32(bar)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(bar)),
+        "r"(rp.body + ro.body + rs.body + rx.body + (kMode ? ru.body : 0))
+        : "memory");
+    copy_body(rp, bar);
+    copy_body(ro, bar);
+    copy_body(rs, bar);
+    copy_body(rx, bar);
+    if (kMode) copy_body(ru, bar);
+  }
+  copy_ends<int>(rp);
+  copy_ends<int>(ro);
+  copy_ends<int>(rs);
+  copy_ends<T>(rx);
+  if (kMode) copy_ends<T>(ru);
+  const int* ps = reinterpret_cast<const int*>(rp.dst);
+  const int* os = reinterpret_cast<const int*>(ro.dst);
+  const int* ss = reinterpret_cast<const int*>(rs.dst);
+  const T* xs = reinterpret_cast<const T*>(rx.dst);
+  const T* us = reinterpret_cast<const T*>(ru.dst);
+  float* vs = reinterpret_cast<float*>(smem + L.vs);
+  __syncthreads();   // the mbarrier is initialised and the ends are in
+
+  if constexpr (kMode) {
+    // stage 1: each (t, d) network once; vs[t][y][d] = sign m x.  A thread
+    // reads the bucket and sign of kB columns at once, while the copies fly.
+    constexpr int kB = 4;
+    for (int d0 = threadIdx.x; d0 < D; d0 += kB * kTileThreads) {
+      int bk[kB][kY];
+      float sg[kB][kY];
+#pragma unroll
+      for (int c = 0; c < kB; ++c) {
+        const int d = d0 + c * kTileThreads;
+#pragma unroll
+        for (int y = 0; y < kY; ++y) {
+          bk[c][y] = d < D ? bucket[(size_t)y * D + d] : 0;
+          sg[c][y] = d < D ? sign[(size_t)y * D + d] : 0.f;
+        }
+      }
+      if (d0 == (int)threadIdx.x) mbar_wait(bar, 0);
+#pragma unroll
+      for (int c = 0; c < kB; ++c) {
+        const int d = d0 + c * kTileThreads;
+        if (d >= D) break;
+#pragma unroll
+        for (int t = 0; t < kR; ++t) {
+          if (t < n_t) {
+            float v[kY], m[kY];
+            int rel[kY * kY];
+#pragma unroll
+            for (int y = 0; y < kY; ++y)
+              v[y] = sg[c][y] * to_f(us[t * YZ + y * Z + bk[c][y]]);
+            median_network<kY, true>(v, rel);
+            median_weights<kY>(rel, m);
+            const float g = to_f(xs[t * D + d]);
+#pragma unroll
+            for (int y = 0; y < kY; ++y)
+              vs[(t * kY + y) * D + d] = sg[c][y] * (m[y] * g);
+          }
+        }
+      }
+    }
+    if ((int)threadIdx.x >= D) mbar_wait(bar, 0);
+    __syncthreads();
+  } else {
+    mbar_wait(bar, 0);
+  }
+
+  // stage 2: each (y, z) sums its list, ascending d, kE entries at a time
+  // (their loads in flight together).  Threads take the lists in the plan's
+  // order, longest first, so the lists of a warp are about equally long; the
+  // sums go to shared memory and then to `out` in coalesced stores.
+  constexpr int kE = 4;
+  T* ob = reinterpret_cast<T*>(smem + L.ob);     // (R, Y Z)
+  for (int i = threadIdx.x; i < YZ; i += kTileThreads) {
+    const int yz = os[i];
+    float acc[kR];
+#pragma unroll
+    for (int t = 0; t < kR; ++t) acc[t] = 0.f;
+    const int end = ps[yz + 1];
+    const float* vy = vs + (yz / Z) * D;
+    for (int k0 = ps[yz]; k0 < end; k0 += kE) {
+      int e[kE];
+#pragma unroll
+      for (int c = 0; c < kE; ++c) e[c] = k0 + c < end ? ss[k0 + c] : 0;
+#pragma unroll
+      for (int c = 0; c < kE; ++c) {
+        if (k0 + c < end) {
+          const int d = e[c] < 0 ? ~e[c] : e[c];
+#pragma unroll
+          for (int t = 0; t < kR; ++t) {
+            if constexpr (kMode) {
+              acc[t] += vy[t * kY * D + d];
+            } else {
+              const float xv = to_f(xs[t * D + d]);
+              acc[t] += e[c] < 0 ? -xv : xv;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kR; ++t) ob[t * YZ + yz] = from_f<T>(acc[t]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_t * YZ; i += kTileThreads)
+    out[(size_t)row0 * YZ + i] = ob[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -247,9 +505,10 @@ sketch_gather_kernel(const T* __restrict__ u, const int* __restrict__ bucket,
 // ---------------------------------------------------------------------------
 
 // Allow `smem` bytes of dynamic shared memory for the kernel (above 48 KB
-// it must be asked for, once per kernel), then launch it over the row blocks.
+// it must be asked for, once per kernel), then launch `blocks` blocks.
 template <auto kKernel, typename... Args>
-int launch_rows(int smem, int n_rows, cudaStream_t s, Args... args) {
+int launch_blocks(int smem, int blocks, int threads, cudaStream_t s,
+                  Args... args) {
   static int allowed = 0;
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -257,19 +516,15 @@ int launch_rows(int smem, int n_rows, cudaStream_t s, Args... args) {
     if (e != cudaSuccess) return (int)e;
     allowed = smem;
   }
-  const int blocks = (n_rows + kRows - 1) / kRows;
-  kKernel<<<blocks, kThreads, smem, s>>>(args...);
+  kKernel<<<blocks, threads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kY>
-int scatter_median_bwd(const T* x, const T* u, const int* ptr, const int* idx,
-                       const float* sign, const int* bucket, T* out,
-                       int n_rows, int D, int Z, cudaStream_t s) {
-  const int smem = kRows * (D + kY * Z) * (int)sizeof(float);
-  return launch_rows<sketch_scatter_kernel<T, kY>>(smem, n_rows, s, x, u, ptr,
-                                                  idx, sign, bucket, out,
-                                                  n_rows, D, kY, Z);
+// the same over blocks of kRows rows
+template <auto kKernel, typename... Args>
+int launch_rows(int smem, int n_rows, cudaStream_t s, Args... args) {
+  return launch_blocks<kKernel>(smem, (n_rows + kRows - 1) / kRows,
+                                kThreads, s, args...);
 }
 
 template <typename T, int kY>
@@ -296,28 +551,91 @@ int gather(const T* u, const int* bucket, const float* sign, T* out,
     default: return (int)cudaErrorInvalidValue; \
   }
 
+// The scatter's route: rows a block of the tile route (the most of
+// kMaxScatterRows[mode], ..., 2 and 1 that leave kScatterTargetBlocks
+// blocks, halved until its shared memory fits), 0 for the rows route (the
+// first kernel) where no tile fits, -1 where neither fits.
+// rows_force > 0 forces the tile route's rows, -1 the rows route.
+int scatter_plan(int n_rows, int D, int Y, int Z, int mode, int el,
+                 int rows_force) {
+  const int rows_smem = kRows * (D + (mode ? Y * Z : 0)) * 4;
+  if (rows_force < 0) return rows_smem <= kMaxSmem ? 0 : -1;
+  int R = rows_force;
+  if (R == 0) {
+    R = 1;
+    for (int cand = kMaxScatterRows[mode]; cand > 1; cand /= 2)
+      if ((n_rows + cand - 1) / cand >= kScatterTargetBlocks) {
+        R = cand;
+        break;
+      }
+    while (R > 1 && scatter_layout(R, D, Y, Z, mode, el).total > kMaxSmem)
+      R /= 2;
+  } else if (R != 1 && R != 2 && R != 4 && R != 8) {
+    return -1;
+  }
+  if (scatter_layout(R, D, Y, Z, mode, el).total <= kMaxSmem) return R;
+  if (rows_force > 0) return -1;
+  return rows_smem <= kMaxSmem ? 0 : -1;
+}
+
+template <typename T, int kY, int kR>
+int scatter_tile(const T* x, const T* u, const int* ptr, const int* order,
+                 const int* sidx, const float* sign, const int* bucket, T* out,
+                 int n_rows, int D, int Y, int Z, cudaStream_t s) {
+  const int smem =
+      scatter_layout(kR, D, Y, Z, kY > 0, (int)sizeof(T)).total;
+  return launch_blocks<sketch_scatter_tile_kernel<T, kY, kR>>(
+      smem, (n_rows + kR - 1) / kR, kTileThreads, s, x, u, ptr, order, sidx,
+      sign, bucket, out, n_rows, D, Y, Z);
+}
+
+template <typename T, int kY>
+int scatter_y(const T* x, const T* u, const int* ptr, const int* order,
+              const int* sidx, const float* sign, const int* bucket, T* out,
+              int n_rows, int D, int Y, int Z, int rows, cudaStream_t s) {
+  switch (rows) {
+    case 0: {   // the rows route
+      const int smem = kRows * (D + (kY > 0 ? Y * Z : 0)) * (int)sizeof(float);
+      return launch_rows<sketch_scatter_kernel<T, kY>>(
+          smem, n_rows, s, x, u, ptr, sidx, sign, bucket, out, n_rows, D, Y,
+          Z);
+    }
+    case 1: return scatter_tile<T, kY, 1>(x, u, ptr, order, sidx, sign,
+                                          bucket, out, n_rows, D, Y, Z, s);
+    case 2: return scatter_tile<T, kY, 2>(x, u, ptr, order, sidx, sign,
+                                          bucket, out, n_rows, D, Y, Z, s);
+    case 4: return scatter_tile<T, kY, 4>(x, u, ptr, order, sidx, sign,
+                                          bucket, out, n_rows, D, Y, Z, s);
+    default: return scatter_tile<T, kY, 8>(x, u, ptr, order, sidx, sign,
+                                           bucket, out, n_rows, D, Y, Z, s);
+  }
+}
+
 template <typename T>
-int scatter(const void* x, const void* u, const void* ptr, const void* idx,
-            const void* sign, const void* bucket, void* out, int n_rows, int D,
-            int Y, int Z, int mode, void* stream) {
+int scatter(const void* x, const void* u, const void* ptr, const void* order,
+            const void* sidx, const void* sign, const void* bucket, void* out,
+            int n_rows, int D, int Y, int Z, int mode, int rows_force,
+            void* stream) {
   if (n_rows <= 0) return 0;
   if (D <= 0 || Z <= 0 || Y < 1 || Y > kMaxY || mode < 0 || mode > 1)
     return (int)cudaErrorInvalidValue;
+  const int rows =
+      scatter_plan(n_rows, D, Y, Z, mode, (int)sizeof(T), rows_force);
+  if (rows < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
   const T* up = static_cast<const T*>(u);
   const int* pp = static_cast<const int*>(ptr);
-  const int* ip = static_cast<const int*>(idx);
+  const int* orp = static_cast<const int*>(order);
+  const int* ip = static_cast<const int*>(sidx);
   const float* sp = static_cast<const float*>(sign);
   const int* bp = static_cast<const int*>(bucket);
   T* op = static_cast<T*>(out);
-  if (mode == 0) {
-    const int smem = kRows * D * (int)sizeof(float);
-    return launch_rows<sketch_scatter_kernel<T, 0>>(
-        smem, n_rows, s, xp, up, pp, ip, sp, bp, op, n_rows, D, Y, Z);
-  }
-  SKETCH_FOR_EACH_Y(scatter_median_bwd, xp, up, pp, ip, sp, bp, op, n_rows, D,
-                    Z, s)
+  if (mode == 0)
+    return scatter_y<T, 0>(xp, up, pp, orp, ip, sp, bp, op, n_rows, D, Y, Z,
+                           rows, s);
+  SKETCH_FOR_EACH_Y(scatter_y, xp, up, pp, orp, ip, sp, bp, op, n_rows, D, Y,
+                    Z, rows, s)
 }
 
 template <typename T>
@@ -337,26 +655,68 @@ int gather_any(const void* u, const void* bucket, const void* sign, void* out,
 
 // C interface, loaded with ctypes.  Device pointers, row-major and
 // contiguous.  x (n_rows, D) and out/u (n_rows, Y, Z) of one type; ptr
-// (Y Z + 1) and idx (Y D) int32, the plan's inverse index; sign (Y, D)
-// float32; bucket (Y, D) int32; 1 <= Y <= 8.  mode 0 is compress, mode 1
-// the median's backward (which reads u and bucket).  Shared memory holds
-// 4 (D + Y Z) floats.  Returns the launch's cudaGetLastError().
+// (Y Z + 1) and sidx (Y D) int32, the plan's inverse index with each entry
+// signed (d, or ~d where sign[y, d] = -1); order (Y Z) int32, the lists
+// longest first; sign (Y, D) float32; bucket (Y, D) int32; 1 <= Y <= 8.  mode 0 is compress, mode 1 the median's backward
+// (which reads u, bucket and sign).  The route and its shared memory are
+// scatter_plan's.  Returns the launch's cudaGetLastError().
 extern "C" int sketch_scatter_bf16(const void* x, const void* u,
-                                   const void* ptr, const void* idx,
-                                   const void* sign, const void* bucket,
-                                   void* out, int n_rows, int D, int Y, int Z,
-                                   int mode, void* stream) {
-  return scatter<__nv_bfloat16>(x, u, ptr, idx, sign, bucket, out, n_rows, D,
-                                Y, Z, mode, stream);
+                                   const void* ptr, const void* order,
+                                   const void* sidx, const void* sign,
+                                   const void* bucket, void* out, int n_rows,
+                                   int D, int Y, int Z, int mode,
+                                   void* stream) {
+  return scatter<__nv_bfloat16>(x, u, ptr, order, sidx, sign, bucket, out,
+                                n_rows, D, Y, Z, mode, 0, stream);
 }
 
 extern "C" int sketch_scatter_f32(const void* x, const void* u,
-                                  const void* ptr, const void* idx,
-                                  const void* sign, const void* bucket,
-                                  void* out, int n_rows, int D, int Y, int Z,
-                                  int mode, void* stream) {
-  return scatter<float>(x, u, ptr, idx, sign, bucket, out, n_rows, D, Y, Z,
-                        mode, stream);
+                                  const void* ptr, const void* order,
+                                  const void* sidx, const void* sign,
+                                  const void* bucket, void* out, int n_rows,
+                                  int D, int Y, int Z, int mode,
+                                  void* stream) {
+  return scatter<float>(x, u, ptr, order, sidx, sign, bucket, out, n_rows, D,
+                        Y, Z, mode, 0, stream);
+}
+
+// The same with the route forced, for timing and testing the routes (the
+// port itself calls the functions above): rows > 0 is the tile route with
+// that many rows a block (1, 2, 4 or 8; an error if it does not fit), -1
+// the rows route, 0 the rule.
+extern "C" int sketch_scatter_route_bf16(const void* x, const void* u,
+                                         const void* ptr, const void* order,
+                                         const void* sidx, const void* sign,
+                                         const void* bucket, void* out,
+                                         int n_rows, int D, int Y, int Z,
+                                         int mode, int rows, void* stream) {
+  return scatter<__nv_bfloat16>(x, u, ptr, order, sidx, sign, bucket, out,
+                                n_rows, D, Y, Z, mode, rows, stream);
+}
+
+extern "C" int sketch_scatter_route_f32(const void* x, const void* u,
+                                        const void* ptr, const void* order,
+                                        const void* sidx, const void* sign,
+                                        const void* bucket, void* out,
+                                        int n_rows, int D, int Y, int Z,
+                                        int mode, int rows, void* stream) {
+  return scatter<float>(x, u, ptr, order, sidx, sign, bucket, out, n_rows, D,
+                        Y, Z, mode, rows, stream);
+}
+
+// The scatter's route for these shapes: out[0] is the tile route's rows a
+// block, 0 for the rows route, -1 where no route fits; out[1] the blocks and
+// out[2] the dynamic shared memory in bytes.  Lets the caller check its
+// mirror of the rule (kernels/count_sketch/ops.py) and print the grid.
+extern "C" int sketch_scatter_plan(int n_rows, int D, int Y, int Z, int mode,
+                                   int elem_bytes, int* out) {
+  const int rows = scatter_plan(n_rows, D, Y, Z, mode, elem_bytes, 0);
+  out[0] = rows;
+  out[1] = rows > 0 ? (n_rows + rows - 1) / rows
+                    : (rows == 0 ? (n_rows + kRows - 1) / kRows : 0);
+  out[2] = rows > 0 ? scatter_layout(rows, D, Y, Z, mode, elem_bytes).total
+                    : (rows == 0 ? kRows * (D + (mode ? Y * Z : 0)) * 4 : 0);
+  return 0;
 }
 
 // u (n_rows, Y, Z) -> out (n_rows, D) of the same type; bucket (Y, D) int32,

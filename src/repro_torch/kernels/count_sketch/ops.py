@@ -16,8 +16,17 @@ tensor to the plain versions (``ref.py``) and launch the kernels of
 Their ``launches`` attributes count kernel launches.
 
 A plan is any object with ``bucket`` (Y, D) int32, ``sign`` (Y, D) float32,
-``z`` and the inverse index ``ptr`` (Y Z + 1,) / ``idx`` (Y D,) int32 that
-:class:`repro_torch.core.sketch.SketchPlan` builds.
+``z``, the inverse index ``ptr`` (Y Z + 1,) / ``sidx`` (Y D,) int32 (each
+entry d signed: ``~d`` where the sign is -1) and the lists' ``order``
+(Y Z,) int32, longest first, that :class:`repro_torch.core.sketch.SketchPlan`
+builds.
+
+The scatter has two routes behind the same C functions: the tile route (R
+rows a block, copied in by bulk copies; the median backward's network run
+once a column into shared memory) wherever its shared memory fits, else
+the first, simpler kernel (4 rows a block, the rows route).  :func:`_scatter_plan` is
+the C rule's twin and :func:`_scatter_smem` its shared-memory layout's, so
+that a CPU test can pin both; :func:`_plan_scatter` asks the built library.
 """
 from __future__ import annotations
 
@@ -34,12 +43,18 @@ from repro_torch.kernels.count_sketch.ref import (compress_ref, decompress_ref,
 MAX_Y = 8
 ROWS_PER_BLOCK = 4                   # csrc/count_sketch.cu kRows
 MAX_SHARED_BYTES = 232448            # per block on sm_90
+# the scatter's tile route: kMaxScatterRows (compress, the median backward)
+# and kScatterTargetBlocks
+_SCATTER_MAX_ROWS = (8, 4)
+_SCATTER_TARGET_BLOCKS = 128
 _SOURCES = ("count_sketch.cu",)
 _V = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {}
+_SIGNATURES = {"sketch_scatter_plan": ([_I] * 6 + [ctypes.POINTER(_I)], _I)}
 for _t in ("bf16", "f32"):
-    _SIGNATURES[f"sketch_scatter_{_t}"] = ([_V] * 7 + [_I] * 5 + [_V], _I)
+    _SIGNATURES[f"sketch_scatter_{_t}"] = ([_V] * 8 + [_I] * 5 + [_V], _I)
+    _SIGNATURES[f"sketch_scatter_route_{_t}"] = ([_V] * 8 + [_I] * 6 + [_V],
+                                                 _I)
     _SIGNATURES[f"sketch_gather_{_t}"] = ([_V] * 4 + [_I] * 5 + [_V], _I)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -52,6 +67,59 @@ def library() -> ctypes.CDLL:
 def _plan_shapes(plan):
     Y, D = plan.bucket.shape
     return Y, D, plan.z
+
+
+def _round16(a: int) -> int:
+    return -(-a // 16) * 16
+
+
+def _scatter_smem(rows: int, D: int, Y: int, Z: int, median_bwd: bool,
+                  el: int) -> int:
+    """Bytes of dynamic shared memory of a tile-route scatter block of
+    ``rows`` rows: the twin of ``scatter_layout`` in ``csrc/count_sketch.cu``
+    (the mbarrier, the plan's ptr, order and sidx, the rows of x and, for
+    the median backward, of u, each run with 16 bytes of room for its
+    alignment, the first stage's rows x Y x D fp32 values, and the rows of
+    the output)."""
+    n = 16 + _round16((Y * Z + 1) * 4) + 16 + _round16(Y * Z * 4) + 16
+    n += _round16(Y * D * 4) + 16 + _round16(rows * D * el) + 16
+    if median_bwd:
+        n += _round16(rows * Y * Z * el) + 16 + rows * Y * D * 4
+    return n + _round16(rows * Y * Z * el)
+
+
+def _scatter_plan(T: int, D: int, Y: int, Z: int, median_bwd: bool, dtype):
+    """The scatter's route for these shapes: the tile route's rows a block
+    (the most of 8, 4, 2 and 1 for compress, of 4, 2 and 1 for the median
+    backward, that leave 128 blocks, halved until its shared memory fits),
+    0 for the rows route (4 rows a block, where no tile fits but 4 (D
+    [+ Y Z]) floats do), ``None`` where neither fits: the twin of
+    ``scatter_plan`` in ``csrc/count_sketch.cu``."""
+    el = torch.empty((), dtype=dtype).element_size()
+    rows, cand = 1, _SCATTER_MAX_ROWS[int(median_bwd)]
+    while cand > 1:
+        if -(-T // cand) >= _SCATTER_TARGET_BLOCKS:
+            rows = cand
+            break
+        cand //= 2
+    while rows > 1 and _scatter_smem(rows, D, Y, Z, median_bwd,
+                                     el) > MAX_SHARED_BYTES:
+        rows //= 2
+    if _scatter_smem(rows, D, Y, Z, median_bwd, el) <= MAX_SHARED_BYTES:
+        return rows
+    floats = D + (Y * Z if median_bwd else 0)
+    return 0 if ROWS_PER_BLOCK * floats * 4 <= MAX_SHARED_BYTES else None
+
+
+def _plan_scatter(T: int, D: int, Y: int, Z: int, median_bwd: bool, dtype):
+    """The C library's own answer: (rows a block or 0 for the rows route,
+    blocks, shared memory bytes), or ``None`` where no route fits (needs the
+    built library; held against :func:`_scatter_plan` on the card)."""
+    out = (ctypes.c_int * 3)()
+    library().sketch_scatter_plan(T, D, Y, Z, int(median_bwd),
+                                  torch.empty((), dtype=dtype).element_size(),
+                                  out)
+    return None if out[0] < 0 else tuple(out)
 
 
 def sketch_scatter(x, plan, u=None):
@@ -98,10 +166,12 @@ def sketch_gather(u, plan, *, median: bool = True):
 sketch_gather.launches = 0
 
 
-def _launch(kind, x, u, plan, out, n_rows: int, mode=0) -> bool:
+def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None) -> bool:
     """Check the operands and launch the kernel over ``n_rows`` rows (of
     D features for the scatter's input, of Y x Z for the gather's) into
-    ``out``; returns whether it launched (no rows launch nothing)."""
+    ``out``; returns whether it launched (no rows launch nothing).
+    ``rows`` forces the scatter's route (a tile route's rows a block, or
+    ``"rows"`` for the rows route), for timing and testing only."""
     if x.device.type != "cuda":
         raise ValueError(f"sketch_{kind}: no kernel for device {x.device}")
     suffix = _SUFFIX.get(x.dtype)
@@ -115,17 +185,23 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0) -> bool:
     if u is not None and (u.dtype != x.dtype or u.device != x.device):
         raise TypeError(f"sketch_{kind}: u is {u.dtype} on {u.device}, x "
                         f"is {x.dtype} on {x.device}")
-    wants = (("bucket", plan.bucket, torch.int32),
-             ("sign", plan.sign, torch.float32),
-             ("ptr", plan.ptr, torch.int32), ("idx", plan.idx, torch.int32))
+    wants = [("bucket", plan.bucket, torch.int32),
+             ("sign", plan.sign, torch.float32)]
+    if kind == "scatter":
+        wants += [("ptr", plan.ptr, torch.int32),
+                  ("sidx", plan.sidx, torch.int32),
+                  ("order", plan.order, torch.int32)]
     for name, t, dtype in wants:
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise TypeError(f"sketch_{kind}: plan.{name} must be contiguous "
                             f"{dtype} on {x.device}, got {t.dtype} on "
                             f"{t.device}")
-    floats = ({"scatter": D + (Y * Z if u is not None else 0),
-               "gather": Y * Z}[kind])
-    if ROWS_PER_BLOCK * floats * 4 > MAX_SHARED_BYTES:
+    if kind == "scatter":
+        fits = _scatter_plan(n_rows, D, Y, Z, u is not None,
+                             x.dtype) is not None
+    else:
+        fits = ROWS_PER_BLOCK * Y * Z * 4 <= MAX_SHARED_BYTES
+    if not fits:
         raise ValueError(f"sketch_{kind}: D={D}, Y*Z={Y * Z} need more "
                          f"shared memory than a block has")
     xc = x.contiguous()
@@ -136,11 +212,16 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0) -> bool:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if kind == "scatter":
             uc = u.contiguous() if u is not None else None
-            err = getattr(lib, f"sketch_scatter_{suffix}")(
-                xc.data_ptr(), None if uc is None else uc.data_ptr(),
-                plan.ptr.data_ptr(), plan.idx.data_ptr(),
-                plan.sign.data_ptr(), plan.bucket.data_ptr(), out.data_ptr(),
-                n_rows, D, Y, Z, 0 if u is None else 1, stream)
+            args = (xc.data_ptr(), None if uc is None else uc.data_ptr(),
+                    plan.ptr.data_ptr(), plan.order.data_ptr(),
+                    plan.sidx.data_ptr(),
+                    plan.sign.data_ptr(), plan.bucket.data_ptr(),
+                    out.data_ptr(), n_rows, D, Y, Z, 0 if u is None else 1)
+            if rows is None:
+                err = getattr(lib, f"sketch_scatter_{suffix}")(*args, stream)
+            else:
+                err = getattr(lib, f"sketch_scatter_route_{suffix}")(
+                    *args, -1 if rows == "rows" else rows, stream)
         else:
             err = getattr(lib, f"sketch_gather_{suffix}")(
                 xc.data_ptr(), plan.bucket.data_ptr(), plan.sign.data_ptr(),

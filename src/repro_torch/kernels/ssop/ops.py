@@ -10,6 +10,14 @@ constants and get no gradient), so on the card both directions launch the
 kernel and nothing of size T x D is saved.
 
 ``ssop_apply_td.launches`` counts kernel launches, forward and backward.
+
+The library has two routes behind the same C functions, chosen by shape:
+the tile route (D split over a cluster of blocks, tiles of H brought in by
+bulk copies and read from device memory once) where rows of H are 16-byte
+aligned and its shared memory fits, and the rows route (4 rows a block)
+otherwise.  :func:`_tile_plan` is the C rule's twin, so that a CPU test
+can pin the route and grid the paths' shapes take; :func:`_plan` asks the
+built library itself.
 """
 from __future__ import annotations
 
@@ -24,12 +32,84 @@ MAX_RANK = 64
 _SOURCES = ("ssop.cu",)
 _FUNCS = {torch.bfloat16: "ssop_apply_bf16", torch.float32: "ssop_apply_f32"}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ROUTE_FUNCS = {torch.bfloat16: "ssop_apply_route_bf16",
+                torch.float32: "ssop_apply_route_f32"}
+_ROUTE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+_ROUTES = {"rows": -1, "tile": 1}
+
+# The tile route's rule in csrc/ssop.cu: kSliceCols, kMinCluster, kMaxCluster,
+# kTargetBlocks, the rows a tile it tries, kMaxSmem and the block's warps
+_SLICE_COLS = 1024
+_MIN_CLUSTER = 2
+_MAX_CLUSTER = 8
+_TARGET_BLOCKS = 256
+_TILE_ROWS = (32, 16, 8)
+_MAX_SMEM = 232448
+_WARPS = 8
 
 
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return _build.load("ssop", _SOURCES, {
-        name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()})
+    sigs = {name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()}
+    sigs.update({name: (_ROUTE_ARGTYPES, ctypes.c_int)
+                 for name in _ROUTE_FUNCS.values()})
+    sigs["ssop_plan"] = (_PLAN_ARGTYPES, ctypes.c_int)
+    return _build.load("ssop", _SOURCES, sigs)
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _tile_smem(Ds: int, R: int, r: int, el: int, C: int) -> int:
+    """Bytes of shared memory of a tile block: the twin of ``tile_layout``
+    in ``csrc/ssop.cu`` (U^T and the tile of H in rows of Ds + 16 / el
+    elements, U's rows as they lie with 16 bytes of room for their shift,
+    the partial sums of P padded by one column, the cluster's C partials
+    of P, P, (P W)^T, W and two mbarriers)."""
+    kR = next(k for k in (8, 16, 32, 64) if r <= k)
+    ld, rows = Ds + 16 // el, _round_up(R, 16)
+    n_red = _WARPS if el == 2 else 256 // ((R // 4) * (kR // 4))
+    off = _round_up(kR * ld * el, 16) + _round_up(Ds * kR * el, 16) + 16
+    off += _round_up(rows * ld * el, 16)
+    off += _round_up(rows * kR * (n_red + 1) * 4, 16)
+    off += C * R * kR * 4 + 2 * R * kR * 4 + kR * kR * 4
+    return _round_up(off, 16) + 16
+
+
+def _tile_plan(T: int, D: int, r: int, dtype, aligned: bool):
+    """The tile route's (cluster size, rows a tile, slice width) for these
+    shapes, or ``None`` for the rows route: the twin of ``tile_plan`` in
+    ``csrc/ssop.cu``.  ``aligned``: h and out 16-byte aligned.  The tile
+    route needs D x element size a multiple of 16 and its shared memory
+    within a block's; D is split over
+    ceil(D / 1024) blocks but at least 2 (at most ceil(D / 16), so that no
+    block is without columns), or more (at most 8) where a slice does not
+    fit, and a tile is the largest of 32, 16 and 8 rows that leaves 256
+    blocks, else 8."""
+    el = torch.empty((), dtype=dtype).element_size()
+    if not aligned or (D * el) % 16 or not 1 <= r <= MAX_RANK:
+        return None
+    C = min(max(-(-D // _SLICE_COLS), _MIN_CLUSTER), -(-D // 16))
+    for C in range(min(max(C, 1), _MAX_CLUSTER), _MAX_CLUSTER + 1):
+        Ds = _round_up(-(-D // C), 16)
+        R = next((c for c in _TILE_ROWS[:-1]
+                  if -(-T // c) * C >= _TARGET_BLOCKS), _TILE_ROWS[-1])
+        if _tile_smem(Ds, R, r, el, C) <= _MAX_SMEM:
+            return C, R, Ds
+    return None
+
+
+def _plan(T: int, D: int, r: int, dtype, aligned: bool):
+    """The C library's own answer for these shapes: ``None`` for the rows
+    route, else (cluster size, rows a tile, tiles, slice width, shared
+    memory bytes) of the tile route, one cluster a tile (needs the built
+    library; held against :func:`_tile_plan` on the card)."""
+    out = (ctypes.c_int * 6)()
+    library().ssop_plan(T, D, r, torch.empty((), dtype=dtype).element_size(),
+                        int(aligned), out)
+    return tuple(out[1:]) if out[0] else None
 
 
 def ssop_apply_td(h, u, w):
@@ -50,7 +130,11 @@ def ssop_apply_td(h, u, w):
 ssop_apply_td.launches = 0
 
 
-def _launch(h, u, w):
+def _launch(h, u, w, route=None, cluster=0, rows=0):
+    """Launch the kernel on CUDA tensors.  ``route`` (``"rows"`` or
+    ``"tile"``) and the tile route's ``cluster`` size and ``rows`` a tile
+    force what the rule would choose, for timing and testing only
+    (``chip_smoke.py``, the card tests)."""
     if h.device.type != "cuda":
         raise ValueError(f"ssop_apply: no kernel for device {h.device}")
     fn_name = _FUNCS.get(h.dtype)
@@ -69,14 +153,22 @@ def _launch(h, u, w):
     out = torch.empty_like(hc)
     if T == 0:
         return out
-    fn = getattr(library(), fn_name)
+    args = (hc.data_ptr(), uc.data_ptr(), wc.data_ptr(), out.data_ptr(), T, D,
+            r)
+    forced = route is not None or cluster or rows
+    if forced:
+        fn = getattr(library(), _ROUTE_FUNCS[h.dtype])
+        args += (_ROUTES.get(route, 0), cluster, rows)
+    else:
+        fn = getattr(library(), fn_name)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(hc.data_ptr(), uc.data_ptr(), wc.data_ptr(), out.data_ptr(),
-                 T, D, r, stream)
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"ssop_apply kernel launch failed: CUDA error "
-                           f"{err} (T={T}, D={D}, r={r}, {h.dtype})")
+                           f"{err} (T={T}, D={D}, r={r}, {h.dtype}"
+                           + (f", route {route}, cluster {cluster}, rows "
+                              f"{rows})" if forced else ")"))
     ssop_apply_td.launches += 1
     return out
 

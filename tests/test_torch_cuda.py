@@ -314,6 +314,174 @@ def test_sketch_kernels_reject_what_they_do_not_take(cuda):
                                torch.randn(65, 65, device=cuda))
 
 
+# The edges of SS-OP's routes: the federation's shape (T 2048, D 768, r 8),
+# T 1, T off the tile's rows (and T a tile plus one), rows of H that take no
+# 16-byte copies in bf16 (D 1004: the rows route; the tile route in f32), a
+# D that splits unevenly over the cluster (2056) and r 1, 8 and 64
+SSOP_EDGES = [(2048, 768, 8), (1, 2048, 16), (37, 2048, 16), (17, 768, 8),
+              (9, 1004, 5), (33, 2056, 16), (40, 512, 1), (24, 1024, 64),
+              (300, 2048, 8)]
+
+
+def _ssop_inputs(cuda, T, D, r, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    u = torch.linalg.qr(torch.randn(D, r, generator=g, device=cuda))[0]
+    v = torch.linalg.qr(torch.randn(r, r, generator=g, device=cuda))[0]
+    w = (v.T - torch.eye(r, device=cuda)).to(dtype)
+    return h, u.to(dtype).contiguous(), w
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data pointer is one element past 16-byte
+    alignment."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SSOP_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssop_kernel_edges_on_each_route(cuda, shape, dtype):
+    """Each edge through the rule's route, the tile route forced where it
+    takes the shape and the rows route forced, against the plain version;
+    the library's route is its Python twin's."""
+    T, D, r = shape
+    h, u, w = _ssop_inputs(cuda, T, D, r, dtype)
+    want = ssop_apply_ref(h, u, w)
+    plan = ssop_ops._plan(T, D, r, dtype, True)
+    twin = ssop_ops._tile_plan(T, D, r, dtype, True)
+    assert (plan is None) == (twin is None)
+    if plan is not None:
+        assert plan[:2] == twin[:2] and plan[3] == twin[2]
+    before = ssop_ops.ssop_apply_td.launches
+    _close(ssop_ops.ssop_apply_td(h, u, w), want, dtype)
+    assert ssop_ops.ssop_apply_td.launches == before + 1
+    routes = ["rows"] + (["tile"] if twin is not None else [])
+    for route in routes:
+        _close(ssop_ops._launch(h, u, w, route=route), want, dtype)
+    # an unaligned h takes the rows route and gives the same
+    assert ssop_ops._tile_plan(T, D, r, dtype, False) is None
+    _close(ssop_ops.ssop_apply_td(_unaligned(h), u, w), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cluster,rows", [(1, 8), (2, 16), (4, 32), (8, 8),
+                                          (4, 16)])
+def test_ssop_tile_route_sweep_configurations(cuda, cluster, rows, dtype):
+    """Every cluster size and tile height phase 3b sweeps, at olmo-1b's and
+    the federation's widths and at a T off every tile height, against the
+    plain version; a configuration whose shared memory (the mirror's) does
+    not fit is refused."""
+    el = torch.empty((), dtype=dtype).element_size()
+    for T, D, r in ((512, 2048, 16), (2048, 768, 8), (77, 2048, 16)):
+        h, u, w = _ssop_inputs(cuda, T, D, r, dtype, seed=cluster + rows)
+        want = ssop_apply_ref(h, u, w)
+        Ds = ssop_ops._round_up(-(-D // cluster), 16)
+        fits = ssop_ops._tile_smem(Ds, rows, r, el, cluster) <= \
+            ssop_ops._MAX_SMEM
+
+        def run():
+            return ssop_ops._launch(h, u, w, route="tile", cluster=cluster,
+                                    rows=rows)
+        if fits:
+            _close(run(), want, dtype)
+        else:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                run()
+
+
+def test_ssop_tile_route_is_deterministic(cuda):
+    """The cluster sums its partials in rank order: the same inputs give
+    the same bits, launch after launch."""
+    h, u, w = _ssop_inputs(cuda, 2048, 768, 8, torch.float32, seed=3)
+    first = ssop_ops.ssop_apply_td(h, u, w)
+    for _ in range(5):
+        assert torch.equal(ssop_ops.ssop_apply_td(h, u, w), first)
+
+
+# The edges of the scatter's routes: the federation's shape (T 2048, D 768,
+# Y 3, Z 121), T 1, T off every tile height, rows of x and u that are not
+# 16-byte multiples (D 50, Y Z 35), Y 1 to 8 with ties, and a D whose first
+# stage does not fit for 8 rows (D 6000, Y 8: fewer rows a block)
+SCATTER_EDGES = [(2048, 768, 3, 121), (1, 2048, 3, 325), (13, 768, 3, 121),
+                 (7, 50, 5, 7), (9, 130, 1, 11), (6, 64, 2, 9),
+                 (11, 300, 4, 21), (5, 333, 6, 13), (10, 96, 7, 5),
+                 (300, 6000, 8, 40)]
+
+
+def _sketch_inputs(cuda, T, D, Y, Z, dtype, seed=0):
+    plan = make_plan(D, Y, Z, seed=1, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    u = torch.randn(T, Y, Z, generator=g, device=cuda).to(dtype)
+    u[:, :, :max(1, Z // 4)] = 0
+    gy = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    return plan, h, u, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCATTER_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sketch_scatter_edges_on_each_route(cuda, shape, dtype):
+    """Compress and the median backward through the rule's route, through
+    every tile height that fits and through the rows route, on aligned and
+    on offset (unaligned) rows, against the plain versions; the library's
+    route is its Python twin's, and its shared memory the mirror's."""
+    T, D, Y, Z = shape
+    plan, h, u, gy = _sketch_inputs(cuda, T, D, Y, Z, dtype)
+    b, s = plan.bucket, plan.sign
+    # the plan's signed index, built on the card: each entry of list (y, z)
+    # decodes to a d with bucket[y, d] = z, negative where sign[y, d] = -1
+    lists = torch.repeat_interleave(torch.arange(Y * Z, device=cuda),
+                                    torch.diff(plan.ptr.long()))
+    d = torch.where(plan.sidx < 0, ~plan.sidx, plan.sidx).long()
+    assert torch.equal(b[lists // Z, d].long(), lists % Z)
+    assert torch.equal(s[lists // Z, d] < 0, plan.sidx < 0)
+    el = h.element_size()
+    for median_bwd in (False, True):
+        want = (cs_ref.median_backward_ref(gy, u, b, s) if median_bwd
+                else cs_ref.compress_ref(h, b, s, Z))
+        x = gy if median_bwd else h
+        uu = u if median_bwd else None
+        got_plan = cs_ops._plan_scatter(T, D, Y, Z, median_bwd, dtype)
+        rows = cs_ops._scatter_plan(T, D, Y, Z, median_bwd, dtype)
+        assert got_plan[0] == rows
+        if rows:
+            assert got_plan[2] == cs_ops._scatter_smem(rows, D, Y, Z,
+                                                       median_bwd, el)
+        before = cs_ops.sketch_scatter.launches
+        _close(cs_ops.sketch_scatter(x, plan, u=uu), want, dtype)
+        assert cs_ops.sketch_scatter.launches == before + 1
+        forced = ["rows"] + [
+            r for r in (1, 2, 4, 8) if cs_ops._scatter_smem(
+                r, D, Y, Z, median_bwd, el) <= cs_ops.MAX_SHARED_BYTES]
+        for route in forced:
+            out = torch.empty_like(want)
+            assert cs_ops._launch("scatter", x, uu, plan, out, T, rows=route)
+            _close(out, want, dtype)
+        xo = _unaligned(x)
+        uo = _unaligned(uu) if median_bwd else None
+        _close(cs_ops.sketch_scatter(xo, plan, u=uo), want, dtype)
+
+
+def test_sketch_scatter_is_deterministic(cuda):
+    """A fixed order for every output, no atomics: the same bits, launch
+    after launch, in both modes."""
+    plan, h, u, gy = _sketch_inputs(cuda, 2048, 768, 3, 121, torch.float32)
+    first = (cs_ops.sketch_scatter(h, plan),
+             cs_ops.sketch_scatter(gy, plan, u=u))
+    for _ in range(5):
+        assert torch.equal(cs_ops.sketch_scatter(h, plan), first[0])
+        assert torch.equal(cs_ops.sketch_scatter(gy, plan, u=u), first[1])
+
+
 # (B, S, H, KV, Dh, dtype, causal, window): BERT (non-causal, f32), olmo-1b
 # (causal, Dh 128, bf16), ragged lengths, GQA at llama3-8b's ratio, windows
 # with and without causality, and a long causal sequence; phase 3c of

@@ -86,7 +86,8 @@ def test_make_plan_bit_identical(d, y, z, seed):
 @pytest.mark.parametrize("d,y,z", SHAPES)
 def test_inverse_index_covers_each_feature_once_in_order(d, y, z):
     plan, _ = _plans(d, y, z, seed=3)
-    ptr, idx = plan.ptr.numpy(), plan.idx.numpy()
+    ptr, sidx = plan.ptr.numpy(), plan.sidx.numpy()
+    idx = np.where(sidx < 0, ~sidx, sidx)      # the signed index, decoded
     bucket = plan.bucket.numpy()
     assert ptr.shape == (y * z + 1,) and idx.shape == (y * d,)
     assert ptr[0] == 0 and ptr[-1] == y * d and np.all(np.diff(ptr) >= 0)
