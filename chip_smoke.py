@@ -28,10 +28,12 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
    against their plain versions, forward and backward, at olmo-1b's and the
    federation's shapes and ragged ones, in bf16 and f32, each path's shapes
-   timed in its own type with bounds, the route of every SS-OP and scatter
-   call (the library's rule held against its Python twin), then the sweep
-   of the tile routes' configurations (SS-OP's cluster size and rows a
-   tile, the scatter's rows a block), each checked and timed;
+   timed in its own type with bounds and a copy yardstick (and decompress
+   beside a composite of library calls), the route of every call (the
+   library's rule held against its Python twin), then the sweep of the
+   tile routes' configurations (SS-OP's cluster size and rows a tile, the
+   scatter's rows a block, the gather's rows and columns a block), each
+   checked and timed;
 3c. flash attention against its plain version, forward (o, m, l) and
    gradient (the Function against autograd through the plain version), at
    bert-base's and olmo-1b's shapes, ragged lengths, GQA at llama3-8b's
@@ -397,8 +399,17 @@ def lora_cut_sweep():
 def _channel_bound(op, T, D, r, Y, Z, dtype):
     """Least time for the op's work: each input read once and each output
     written once at 3.35 TB/s, or its operations at the dtype's peak,
-    whichever is larger.  Plan arrays (ptr, idx, bucket, sign) are 4 bytes
-    an entry."""
+    whichever is larger."""
+    nbytes, ops = _channel_work(op, T, D, r, Y, Z, dtype)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _channel_work(op, T, D, r, Y, Z, dtype):
+    """(bytes, operations) of the op: each input read once and each output
+    written once.  Plan arrays (ptr, idx, bucket, sign) are 4 bytes an
+    entry; the gather needs only the packed index (Y D entries)."""
     el = torch.tensor([], dtype=dtype).element_size()
     TD, TYZ, YD, ptr = T * D, T * Y * Z, Y * D, Y * Z + 1
     ssop = ((2 * TD + D * r + r * r) * el, 4 * TD * r + 2 * T * r * r)
@@ -408,12 +419,10 @@ def _channel_bound(op, T, D, r, Y, Z, dtype):
         "compress": ((TD + TYZ) * el + (ptr + 2 * YD) * 4, 2 * T * YD),
         "median backward": ((TD + 2 * TYZ) * el + (ptr + 3 * YD) * 4,
                             2 * T * YD),
-        "decompress": ((TYZ + TD) * el + 2 * YD * 4, TD * Y * Y),
-        "compress backward": ((TYZ + TD) * el + 2 * YD * 4, 2 * T * YD),
+        "decompress": ((TYZ + TD) * el + YD * 4, TD * Y * Y),
+        "compress backward": ((TYZ + TD) * el + YD * 4, 2 * T * YD),
     }[op]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return nbytes, ops
 
 
 # (case, T, D, r, Y, Z): olmo-1b's channel (the launcher's 8 x 64 tokens;
@@ -494,10 +503,16 @@ def channel_kernel_phase():
     is held to equality; the others sum in fp32 and round once on both
     sides, so f32 is held to 1e-5 and bf16 to 2^-7 of the output's largest
     value (summation order, and at most one bf16 rounding of an output).
-    The route each SS-OP and scatter call takes is printed and the
-    library's rule held against its Python twin.  Each path's shapes are
-    timed in its own type (olmo-1b bf16, the federation f32) as in phase 3,
-    rotating over input copies that exceed L2."""
+    The route each call takes is printed and the library's rule held
+    against its Python twin.  Each path's shapes are timed in its own type
+    (olmo-1b bf16, the federation f32) as in phase 3, rotating over input
+    copies that exceed L2, beside the copy yardstick (``out.copy_(x)``, x
+    of the output's shape and type rotated the same way, and a copy that
+    reads and writes as many bytes as the op must move, the bound's bytes:
+    the timing method's floor for those bytes) and, for decompress at an odd Y,
+    the library composite (index u by bucket, times sign,
+    ``torch.median``: three calls, exact for an odd Y, held to
+    equality)."""
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -531,26 +546,62 @@ def channel_kernel_phase():
                     row["library_ms"] = _time_ms(lib, sets) if lib else None
                     row["bound_ms"], row["bound_by"] = _channel_bound(
                         op, T, D, r, Y, Z, dtype)
+                    row["copy_ms"] = _copy_ms(got)
+                    nbytes = _channel_work(op, T, D, r, Y, Z, dtype)[0]
+                    row["bytes_copy_ms"] = _copy_ms(torch.empty(
+                        nbytes // (2 * got.element_size()), dtype=dtype,
+                        device="cuda"))
                     lib_s = (f"{row['library_ms'] * 1e3:.2f} us" if lib
                              else "-")
+                    if op == "decompress" and Y % 2:
+                        comp = _median_composite(plan, dtype)
+                        check(torch.equal(comp(*args), want),
+                              f"decompress composite {case}: not the median")
+                        row["composite_ms"] = _time_ms(comp, sets)
+                        lib_s = (f"- (composite of 3 calls "
+                                 f"{row['composite_ms'] * 1e3:.2f} us)")
                     msg = (f"  kernel {row['ms'] * 1e3:.2f} us  plain "
                            f"{row['plain_ms'] * 1e3:.2f} us  library {lib_s}"
+                           f"  copy {row['copy_ms'] * 1e3:.2f} us (of the "
+                           f"op's bytes {row['bytes_copy_ms'] * 1e3:.2f} us)"
                            f"  bound {row['bound_ms'] * 1e3:.2f} us "
                            f"({row['bound_by']})  "
                            f"{row['bound_ms'] / row['ms']:.1%} of bound")
                     del sets
                 rows.append(row)
                 print(f"{kernel:14s} {op:17s} {case:10s} {row['dtype']:8s} "
-                      f"err {err:.3e} (tol {tol:.3e}){msg}; "
-                      f"{row['route'] or 'gather (4 rows a block)'}",
+                      f"err {err:.3e} (tol {tol:.3e}){msg}; {row['route']}",
                       flush=True)
     return rows
 
 
+def _copy_ms(like):
+    """The copy yardstick: ``out.copy_(x)`` for x of ``like``'s shape and
+    type, x rotated over copies that exceed L2 as the kernels' inputs are,
+    into one ``out`` as the kernels' outputs are (each call reads x and
+    writes out once: the timing method's floor for a kernel that writes
+    ``like``)."""
+    out = torch.empty_like(like)
+
+    def make():
+        return (torch.randn_like(like),)
+    return _time_ms(lambda x: out.copy_(x), _arg_sets(make(), make))
+
+
+def _median_composite(plan, dtype):
+    """Decompress from library calls, for an odd Y: the estimates gathered
+    by indexing u with bucket, times sign, then ``torch.median`` over y (it
+    takes the lower middle value, which is ELSA's median only for an odd
+    Y)."""
+    ys = torch.arange(plan.y, device="cuda")[:, None]
+    b, sg = plan.bucket, plan.sign.to(dtype)
+    return lambda u: torch.median(u[:, ys, b] * sg, dim=1).values
+
+
 def _channel_route(op, T, D, r, Y, Z, dtype):
-    """The route the library takes for an SS-OP or scatter call of these
-    shapes (16-byte aligned operands), checked against its Python twin, as
-    text; None for the gather, which has one."""
+    """The route the library takes for a channel call of these shapes
+    (16-byte aligned operands), checked against its Python twin, as
+    text."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if op.startswith("ssop"):
         plan = ssop_ops._plan(T, D, r, dtype, True)
@@ -565,8 +616,19 @@ def _channel_route(op, T, D, r, Y, Z, dtype):
         return (f"tile route: cluster {C} x slice {Ds}, {R} rows a tile, "
                 f"{tiles} tiles ({C * tiles} blocks, "
                 f"{C * tiles / sms:.2f} an SM), {smem / 1024:.1f} KB")
-    if op not in ("compress", "median backward"):
-        return None
+    if op in ("decompress", "compress backward"):
+        got = cs_ops._plan_gather(T, D, Y, Z, dtype)
+        want = cs_ops._gather_plan(T, D, Y, Z, dtype)
+        el = torch.empty((), dtype=dtype).element_size()
+        check(got is not None and want is not None and got[:2] == want
+              and got[2] == -(-T // want[0]) * -(-D // want[1])
+              and got[3] == cs_ops._gather_smem(want[0], Y, Z, el),
+              f"gather tile of T={T} D={D} Y={Y} Z={Z} {dtype}: library "
+              f"{got}, twin {want}")
+        R, Dc, blocks, smem, threads = got
+        return (f"tile: {R} rows x {Dc} columns a block, {blocks} blocks "
+                f"({blocks / sms:.2f} an SM) of {threads} threads, "
+                f"{smem / 1024:.1f} KB")
     median_bwd = op == "median backward"
     got = cs_ops._plan_scatter(T, D, Y, Z, median_bwd, dtype)
     rows = cs_ops._scatter_plan(T, D, Y, Z, median_bwd, dtype)
@@ -584,10 +646,12 @@ def _channel_route(op, T, D, r, Y, Z, dtype):
 
 def channel_sweep():
     """The tile routes' configurations at each path's timed shape: SS-OP's
-    cluster size (1, 2, 4, 8) x rows a tile (8, 16, 32), forward, and the
+    cluster size (1, 2, 4, 8) x rows a tile (8, 16, 32), forward, the
     scatter's rows a block (1, 2, 4, 8, and the rows route), compress and
-    the median backward; each checked against the plain version as in
-    phase 3b and timed as there.  The rule's own choice is marked."""
+    the median backward, and the gather's rows a block (1 to 32) x columns
+    a slice (D in 1, 2, 4 and 8 slices), decompress and compress backward;
+    each checked against the plain version as in phase 3b and timed as
+    there.  The rule's own choice is marked."""
     g = torch.Generator(device="cuda").manual_seed(3)
     out = []
     for case, T, D, r, Y, Z in CHANNEL_CASES:
@@ -654,6 +718,56 @@ def channel_sweep():
                     print(f"scatter sweep {case:10s} {op:15s} rows {R!s:4s}:"
                           f" {ms * 1e3:7.2f} us{mark}", flush=True)
                 del sets
+            out += _gather_sweep(case, T, D, Y, Z, dtype, plan, table)
+    return out
+
+
+def _gather_sweep(case, T, D, Y, Z, dtype, plan, table):
+    """The gather's tiles at one timed shape (see :func:`channel_sweep`):
+    decompress held to equality, compress backward to phase 3b's
+    tolerance."""
+    out = []
+    el = torch.empty((), dtype=dtype).element_size()
+    run = 16 // el
+    rule = cs_ops._gather_plan(T, D, Y, Z, dtype)
+    for op, mi in (("decompress", 4), ("compress backward", 5)):
+        _, _, _, plain, _, make = table[mi]
+        args = make()
+        sets = _arg_sets(args, make)
+        want = plain(*args)
+        tol = 0.0 if op == "decompress" else (
+            (2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+            * want.float().abs().max().item())
+        for R in (1, 2, 4, 8, 16, 32):
+            for slices in (1, 2, 4, 8):
+                Dc = -(-(-(-D // slices)) // run) * run
+                if (Dc // run > cs_ops._GATHER_THREADS
+                        or cs_ops._gather_smem(R, Y, Z, el)
+                        > cs_ops.MAX_SHARED_BYTES):
+                    continue
+
+                def fn(u, R=R, Dc=Dc):
+                    o = torch.empty(u.shape[:-2] + (D,), dtype=u.dtype,
+                                    device=u.device)
+                    cs_ops._launch("gather", u, None, plan, o, u.shape[0],
+                                   mode=0 if op == "decompress" else 1,
+                                   rows=R, cols=Dc)
+                    return o
+                err = (fn(*args).float() - want.float()).abs().max().item()
+                check(err <= tol, f"gather sweep {op} R={R} Dc={Dc} {case}: "
+                                  f"err {err:.3e} > {tol:.3e}")
+                ms = _time_ms(fn, sets)
+                mark = "  <- the rule" if rule == (R, Dc) else ""
+                _, _, blocks, _, threads = cs_ops._plan_gather(
+                    T, D, Y, Z, dtype, R, Dc)
+                out.append(dict(kernel="sketch_gather", op=op, case=case,
+                                rows=R, cols=Dc, blocks=blocks,
+                                threads=threads, ms=ms, max_abs_err=err,
+                                rule=bool(mark)))
+                print(f"gather sweep {case:10s} {op:17s} rows {R:2d} cols "
+                      f"{Dc:4d} ({blocks:4d} blocks x {threads:3d}): "
+                      f"{ms * 1e3:7.2f} us{mark}", flush=True)
+        del sets
     return out
 
 
@@ -678,7 +792,17 @@ def channel_times():
                                 ms=ms, max_abs_err=err.item()))
                 print(f"{kernel:14s} {op:17s} {case:10s} {ms * 1e3:8.2f} us",
                       flush=True)
-    print(json.dumps({"channel_times": out, "src": SRC}))
+    # the whole channel as a training step without a prebuilt plan builds
+    # it (the launcher's olmo-1b channel)
+    cfg = get_config("olmo-1b")
+    _, z = train.elsa_channel_specs(cfg)
+    ch = train.channel_params(cfg, z, "cuda")
+    build_ms = _build_ms(lambda: Channel(
+        SSOP(ch["u"], ch["v"]), SketchPlan(ch["bucket"], ch["sign"], z)))
+    print(f"building the olmo-1b channel and its sketch plan: "
+          f"{build_ms:.4f} ms (median of 20)")
+    print(json.dumps({"channel_times": out, "channel_build_ms": build_ms,
+                      "src": SRC}))
 
 
 def _wrapper(kernel):
@@ -1443,13 +1567,16 @@ def train_profile_phase(n_wall=5):
     """One training step of the launcher's configuration under
     ``torch.profiler`` for the device time of each kernel; the wall time is
     the median of ``n_wall`` unprofiled steps, each ending in a sync.  Idle
-    share = 1 - device busy / wall."""
+    share = 1 - device busy / wall.  The channel is the launcher's, with the
+    sketch's plan built once; what a step builds of it, and what building
+    the plan costs, are timed apart."""
     cfg = get_config("olmo-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_tree(zoo.get_model(cfg).specs(cfg), gen, cfg.dtype(),
                        "cuda")
     _, z = train.elsa_channel_specs(cfg)
     ch = train.channel_params(cfg, z, "cuda")
+    ch["plan"] = SketchPlan(ch["bucket"], ch["sign"], z)
     stream = train.batch_stream(cfg, 8, 64, "cuda")
     opt = AdamW(lr=3e-3)
     step = train.make_train_step(cfg, optimizer=opt, elsa_z=z)
@@ -1463,14 +1590,9 @@ def train_profile_phase(n_wall=5):
 
     for _ in range(2):                                # warm-up
         one()
-    builds = []                   # the channel make_train_step builds a step
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        Channel(SSOP(ch["u"], ch["v"]), SketchPlan(ch["bucket"], ch["sign"], z))
-        torch.cuda.synchronize()
-        builds.append((time.time() - t0) * 1e3)
-    build_ms = statistics.median(builds)
+    # what make_train_step builds of the channel a step, and the plan
+    build_ms = _build_ms(lambda: Channel(SSOP(ch["u"], ch["v"]), ch["plan"]))
+    plan_ms = _build_ms(lambda: SketchPlan(ch["bucket"], ch["sign"], z))
     walls = []
     for _ in range(n_wall):
         t0 = time.time()
@@ -1482,18 +1604,32 @@ def train_profile_phase(n_wall=5):
           f"{wall_ms:.2f} ms without the profiler (steps {walls}), device "
           f"busy {busy_ms:.2f} ms -> idle share {1 - busy_ms / wall_ms:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels; building the channel "
-          f"(sketch index included) {build_ms:.3f} ms a step (median of 20)")
+          f"{build_ms:.4f} ms a step, its sketch plan {plan_ms:.3f} ms once "
+          f"(medians of 20)")
     ours = _our_kernels_ms(rows)
     print(f"  the port's kernels, ms a step: {ours}")
     del params, lora, state
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, walls_ms=walls, device_busy_ms=busy_ms,
-                channel_build_ms=build_ms,
+                channel_build_ms=build_ms, plan_build_ms=plan_ms,
                 idle_share=1 - busy_ms / wall_ms,
                 kernels=sum(r[1] for r in rows),
                 our_kernels_ms=ours,
                 top_kernels=[dict(ms=us / 1e3, count=n, name=key)
                              for us, n, key in rows[:15]])
+
+
+def _build_ms(build, n=20):
+    """Median host time of ``n`` calls of ``build``, each from and to a
+    synced device."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        build()
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -1825,7 +1961,7 @@ def main():
                     and r["dtype"] == dtype)
 
     timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "max_abs_err")
+             "max_abs_err", "copy_ms", "bytes_copy_ms")
 
     def by_path(name):
         out = {"train": train_launches[name],
@@ -1874,6 +2010,12 @@ def main():
                        op: {k: r_[k] for k in timed}
                        for op, r_ in fed.items()} | {
                        "shape": "T=2048 D=768 r=8 Y=3 Z=121 float32"})
+        row["copy_ms"] = pick(name, fwd)["copy_ms"]
+        row["bytes_copy_ms"] = pick(name, fwd)["bytes_copy_ms"]
+        if name == "sketch_gather":   # the composite of three library calls
+            row["composite_ms"] = pick(name, fwd)["composite_ms"]
+            row["at_federation_shape"][fwd]["composite_ms"] = \
+                fed[fwd]["composite_ms"]
         kernels.append(row)
     bert_case = fa_rows[0]
     flash = _record_row("flash_attention",

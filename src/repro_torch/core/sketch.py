@@ -31,13 +31,16 @@ class SketchPlan:
     The index is built from ``bucket`` and ``sign`` when the plan is made
     and lives on their device; ``order`` lists the (y, b) longest list
     first (ties by (y, b)), the order in which the scatter kernel's threads
-    take them."""
+    take them.  ``gidx`` (Y, D) packs each hash entry into one int for the
+    gather kernel: ``bucket[y, d]`` where ``sign[y, d] = +1``, and
+    ``~bucket[y, d]`` where it is -1."""
     bucket: torch.Tensor    # (Y, D) int32 in [0, Z)
     sign: torch.Tensor      # (Y, D) float32 in {-1, +1}
     z: int
     ptr: torch.Tensor = dataclasses.field(init=False, repr=False)
     sidx: torch.Tensor = dataclasses.field(init=False, repr=False)
     order: torch.Tensor = dataclasses.field(init=False, repr=False)
+    gidx: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         Y, D = self.bucket.shape
@@ -58,6 +61,9 @@ class SketchPlan:
             negative, -idx - 1, idx).to(torch.int32))
         object.__setattr__(self, "order", torch.argsort(
             -counts, stable=True).to(torch.int32))
+        bucket = self.bucket.to(torch.int32)
+        object.__setattr__(self, "gidx", torch.where(
+            self.sign < 0, ~bucket, bucket).contiguous())
 
     @property
     def y(self) -> int:

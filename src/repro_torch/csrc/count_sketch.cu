@@ -23,7 +23,9 @@
 //       the weight the median network gives row y of column d.  m is
 //       recomputed here from the sketch u (T, Y, Z) by replaying the network,
 //       not saved from the forward.
-//   gather, one output (t, d) per thread:
+//   gather, a run of 16 bytes of outputs (t, d..d+V) per thread and row,
+//   read through the plan's packed index gidx[y, d] (bucket[y, d] where
+//   sign[y, d] = +1, ~bucket[y, d] where it is -1):
 //     mode 0, decompress: est[y] = sign[y,d] u[t,y,bucket[y,d]], then the
 //       median over y by the compare-exchange network of _median_rows (an even
 //       Y averages the middle two);
@@ -59,7 +61,23 @@
 // simpler kernel takes the call (the rows route: 4 rows a block, copied as
 // fp32, the median network replayed for every list entry).
 //
-// The gather keeps the first design: 4 rows of u in shared memory a block.
+// The gather: a block owns a tile of R rows by a slice of Dc columns
+// (gather_plan(): D in slices of at most 512 columns, then the most of 8,
+// 4, 2 and 1 rows that leave 256 blocks: 8 x 512 at olmo-1b's shape, 8 x
+// 384 at the federation's, the best of chip_smoke.py's sweep at both).
+// Its R rows of u (contiguous) come in by bulk copies in their own type,
+// one a row, each reported to that row's mbarrier, so a row is read as
+// soon as its bytes are in.  A
+// thread takes a run of V = 16 / sizeof(T) columns (8 bf16, 4 f32): it
+// reads its run's Y x V entries of the packed index gidx once, by 16-byte
+// loads issued before anything else, for all its rows; then for each of
+// its rows it gathers Y x V values from shared memory and writes its V
+// outputs by one 16-byte store (element stores only at a ragged end of D
+// or where a row does not start 16-byte aligned).  Strides are products,
+// never divisions.  Bulk-copying the index into shared memory as well (so
+// a block reads each entry once) was slower: every row then waited for the
+// index too.  It is bound by the latency of its copies and of the gathers
+// from shared memory (random buckets meet bank conflicts), not by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,15 +85,23 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // rows route, gather
-constexpr int kTileThreads = 512;  // tile route
-constexpr int kRows = 4;     // rows of x / u per block (rows route, gather)
+constexpr int kThreads = 256;      // the scatter's rows route
+constexpr int kTileThreads = 512;  // the scatter's tile route
+constexpr int kRows = 4;     // rows of x / u per block (rows route)
 constexpr int kMaxY = 8;
 // rows a block of the tile route at most (compress, the median backward),
 // and the blocks they leave at least
 constexpr int kMaxScatterRows[2] = {8, 4};
 constexpr int kScatterTargetBlocks = 128;
 constexpr int kMaxSmem = 232448;          // dynamic shared memory of a block
+// the gather: rows a block at most (the rule's; and any forced: one thread
+// of warp 0 copies each row), the blocks the rule aims at, the columns of
+// its slices at most, and threads a block (about; at most)
+constexpr int kGatherRuleRows = 8;
+constexpr int kGatherMaxRows = 32;
+constexpr int kGatherTargetBlocks = 256;
+constexpr int kGatherMaxCols = 512;
+constexpr int kGatherThreads = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -260,26 +286,33 @@ __device__ __forceinline__ Run make_run(const void* src, int bytes,
   return run;
 }
 
-// thread 0: the run's middle by one bulk copy, reported to `bar`
-__device__ __forceinline__ void copy_body(const Run& run, uint64_t* bar) {
-  if (run.body > 0)
+// one thread: `bytes` (a multiple of 16, both ends 16-byte aligned) by one
+// bulk copy, reported to `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  if (bytes > 0)
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(run.dst + run.head)),
-        "l"(run.src + run.head), "r"(run.body), "r"(smem_u32(bar))
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
         : "memory");
 }
 
-// every thread: the run's ends, element by element
+// thread 0: the run's middle by one bulk copy, reported to `bar`
+__device__ __forceinline__ void copy_body(const Run& run, uint64_t* bar) {
+  bulk_copy(run.dst + run.head, run.src + run.head, run.body, bar);
+}
+
+// threads tid of n: the run's ends, element by element
 template <typename T>
-__device__ __forceinline__ void copy_ends(const Run& run) {
+__device__ __forceinline__ void copy_ends(const Run& run, int tid, int n) {
   constexpr int el = (int)sizeof(T);
   const int n_head = run.head / el;
   const int n_tail = (run.bytes - run.head - run.body) / el;
   const T* s = reinterpret_cast<const T*>(run.src);
   T* d = reinterpret_cast<T*>(run.dst);
   const int tail0 = (run.head + run.body) / el;
-  for (int i = threadIdx.x; i < n_head + n_tail; i += blockDim.x) {
+  for (int i = tid; i < n_head + n_tail; i += n) {
     const int e = i < n_head ? i : tail0 + i - n_head;
     d[e] = s[e];
   }
@@ -354,11 +387,11 @@ sketch_scatter_tile_kernel(const T* __restrict__ x, const T* __restrict__ u,
     copy_body(rx, bar);
     if (kMode) copy_body(ru, bar);
   }
-  copy_ends<int>(rp);
-  copy_ends<int>(ro);
-  copy_ends<int>(rs);
-  copy_ends<T>(rx);
-  if (kMode) copy_ends<T>(ru);
+  copy_ends<int>(rp, threadIdx.x, blockDim.x);
+  copy_ends<int>(ro, threadIdx.x, blockDim.x);
+  copy_ends<int>(rs, threadIdx.x, blockDim.x);
+  copy_ends<T>(rx, threadIdx.x, blockDim.x);
+  if (kMode) copy_ends<T>(ru, threadIdx.x, blockDim.x);
   const int* ps = reinterpret_cast<const int*>(rp.dst);
   const int* os = reinterpret_cast<const int*>(ro.dst);
   const int* ss = reinterpret_cast<const int*>(rs.dst);
@@ -457,45 +490,169 @@ sketch_scatter_tile_kernel(const T* __restrict__ x, const T* __restrict__ u,
 // gather: out (n_rows, D) from u (n_rows, Y, Z)
 // ---------------------------------------------------------------------------
 
-template <typename T, int kY, bool kMedian>
-__global__ void __launch_bounds__(kThreads)
-sketch_gather_kernel(const T* __restrict__ u, const int* __restrict__ bucket,
-                     const float* __restrict__ sign, T* __restrict__ out,
-                     int n_rows, int D, int Z) {
-  extern __shared__ float smem[];
-  float* us = smem;                    // (kRows, kY * Z)
-  const int YZ = kY * Z;
-  const int row0 = blockIdx.x * kRows;
-  int n_t = n_rows - row0;
-  n_t = n_t < kRows ? n_t : kRows;
-  load_rows(us, u, row0, n_rows, YZ);
-  __syncthreads();
+// Bytes of a gather block's shared memory: one mbarrier a row, then the R
+// rows of u in their own type (16 bytes of room for the shift).
+__host__ __device__ inline int gather_smem(int R, int Y, int Z, int el) {
+  return round16(R * 8) + round16(R * Y * Z * el) + 16;
+}
 
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    int bk[kY];
-    float sg[kY];
+// Row groups of a gather block: blockDim.y, so that a block of Dc / V
+// column runs has about kGatherThreads threads, each taking every
+// blockDim.y-th row of the tile.
+__host__ __device__ inline int gather_row_groups(int R, int runs) {
+  const int p = runs < kGatherThreads ? kGatherThreads / runs : 1;
+  return p < R ? p : R;
+}
+
+// Block (blockIdx.x, blockIdx.y) owns rows [R bx, R bx + R) and columns
+// [Dc by, Dc by + Dc); thread (x, y) the run of kV columns from Dc by + kV x
+// and rows y, y + blockDim.y, ....  kMedian: the median decode (mode 0),
+// else the sum over y (mode 1).
+template <typename T, int kY, bool kMedian>
+__global__ void __launch_bounds__(kGatherThreads)
+sketch_gather_kernel(const T* __restrict__ u, const int* __restrict__ gidx,
+                     T* __restrict__ out, int n_rows, int D, int Z, int R,
+                     int Dc) {
+  constexpr int kV = 16 / (int)sizeof(T);   // columns a thread: 16 bytes
+  extern __shared__ __align__(128) unsigned char gather_smem_[];
+  unsigned char* smem = gather_smem_;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int YZ = kY * Z;
+  const int row0 = blockIdx.x * R;
+  const int n_t = min(R, n_rows - row0);
+  const int c0 = blockIdx.y * Dc + kV * threadIdx.x;   // the thread's run
+  const bool busy = c0 < D && (int)threadIdx.y < n_t;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  const int row_bytes = YZ * (int)sizeof(T);
+
+  // The run's Y x kV index entries, once for all its rows, straight from
+  // global memory (16-byte loads where the run is whole and aligned),
+  // issued first so that they fly while the rows of u are copied.
+  int gi[kY][kV];
+  if (busy) {
 #pragma unroll
-    for (int yy = 0; yy < kY; ++yy) {
-      bk[yy] = bucket[(size_t)yy * D + d];
-      sg[yy] = sign[(size_t)yy * D + d];
+    for (int y = 0; y < kY; ++y) {
+      const int* src = gidx + (size_t)y * D + c0;
+      if (c0 + kV <= D && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+#pragma unroll
+        for (int q = 0; q < kV / 4; ++q) {
+          const int4 w = __ldg(reinterpret_cast<const int4*>(src) + q);
+          gi[y][4 * q] = w.x;
+          gi[y][4 * q + 1] = w.y;
+          gi[y][4 * q + 2] = w.z;
+          gi[y][4 * q + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kV; ++j)
+          gi[y][j] = c0 + j < D ? __ldg(src + j) : 0;
+      }
     }
+  }
+
+  const Run ru = make_run(u + (size_t)row0 * YZ, n_t * row_bytes,
+                          smem + round16(R * 8));
+  if (tid < 32) {
+    if (tid == 0) {
+      for (int k = 0; k < n_t; ++k)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+            smem_u32(bar + k)));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp(n_threads < 32 ? (1u << n_threads) - 1 : 0xffffffffu);
+    // thread k of warp 0: the 16-byte aligned bytes from row k's start to
+    // row k + 1's, by one bulk copy to barrier k, so that a row can be read
+    // as soon as its own bytes are in
+    const int k = tid;
+    if (k < n_t) {
+      const uintptr_t a0 = reinterpret_cast<uintptr_t>(ru.src);
+      const uintptr_t lo = a0 + ru.head, hi = lo + ru.body;
+      const auto up = [&](uintptr_t a) {
+        a = (a + 15) & ~(uintptr_t)15;
+        return a < lo ? lo : (a > hi ? hi : a);
+      };
+      const uintptr_t p0 = up(a0 + (size_t)k * row_bytes);
+      const uintptr_t p1 = up(a0 + (size_t)(k + 1) * row_bytes);
+      const int bytes = (int)(p1 - p0);
+      if (bytes > 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                smem_u32(bar + k)),
+            "r"(bytes)
+            : "memory");
+      else
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                         smem_u32(bar + k))
+                     : "memory");
+      bulk_copy(ru.dst + (p0 - a0), reinterpret_cast<const void*>(p0), bytes,
+                bar + k);
+    }
+  }
+  copy_ends<T>(ru, tid, n_threads);
+  __syncthreads();   // the mbarriers are set up and the ends are in
+  if (!busy) return;
+
+  // each entry decoded once: the byte offset of u[t, y, bucket] in row t,
+  // and the sign as the float's sign bit (columns past D read bucket 0 and
+  // are not stored)
+  unsigned sg[kY][kV];
 #pragma unroll
-    for (int t = 0; t < kRows; ++t) {
-      if (t >= n_t) break;
+  for (int y = 0; y < kY; ++y)
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int e = gi[y][j];
+      sg[y][j] = (unsigned)e & 0x80000000u;
+      gi[y][j] = (y * Z + (e ^ (e >> 31))) * (int)sizeof(T);
+    }
+
+  const unsigned char* us = ru.dst;
+  int waited = 0;
+  for (int t = threadIdx.y; t < n_t; t += blockDim.y) {
+    while (waited <= t) {
+      mbar_wait(bar + waited, 0);
+      ++waited;
+    }
+    const unsigned char* ur = us + t * row_bytes;
+    float r[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
       float v[kY];
 #pragma unroll
-      for (int yy = 0; yy < kY; ++yy)
-        v[yy] = sg[yy] * us[t * YZ + yy * Z + bk[yy]];
-      float res;
+      for (int y = 0; y < kY; ++y) {
+        const float x = to_f(*reinterpret_cast<const T*>(ur + gi[y][j]));
+        v[y] = __uint_as_float(__float_as_uint(x) ^ sg[y][j]);
+      }
       if constexpr (kMedian) {
         int rel[kY * kY];
-        res = median_network<kY, false>(v, rel);
+        r[j] = median_network<kY, false>(v, rel);
       } else {
-        res = 0.f;
+        r[j] = v[0];
 #pragma unroll
-        for (int yy = 0; yy < kY; ++yy) res += v[yy];
+        for (int y = 1; y < kY; ++y) r[j] += v[y];
       }
-      out[(size_t)(row0 + t) * D + d] = from_f<T>(res);
+    }
+    T* op = out + (size_t)(row0 + t) * D + c0;
+    if (c0 + kV <= D && (reinterpret_cast<uintptr_t>(op) & 15) == 0) {
+      uint4 w;
+      if constexpr (sizeof(T) == 2) {
+        unsigned h[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 b2 =
+              __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
+          h[i] = *reinterpret_cast<const unsigned*>(&b2);
+        }
+        w = make_uint4(h[0], h[1], h[2], h[3]);
+      } else {
+        w = make_uint4(__float_as_uint(r[0]), __float_as_uint(r[1]),
+                       __float_as_uint(r[2]), __float_as_uint(r[3]));
+      }
+      *reinterpret_cast<uint4*>(op) = w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kV; ++j)
+        if (c0 + j < D) op[j] = from_f<T>(r[j]);
     }
   }
 }
@@ -507,7 +664,7 @@ sketch_gather_kernel(const T* __restrict__ u, const int* __restrict__ bucket,
 // Allow `smem` bytes of dynamic shared memory for the kernel (above 48 KB
 // it must be asked for, once per kernel), then launch `blocks` blocks.
 template <auto kKernel, typename... Args>
-int launch_blocks(int smem, int blocks, int threads, cudaStream_t s,
+int launch_blocks(int smem, dim3 blocks, dim3 threads, cudaStream_t s,
                   Args... args) {
   static int allowed = 0;
   if (smem > allowed) {
@@ -525,17 +682,6 @@ template <auto kKernel, typename... Args>
 int launch_rows(int smem, int n_rows, cudaStream_t s, Args... args) {
   return launch_blocks<kKernel>(smem, (n_rows + kRows - 1) / kRows,
                                 kThreads, s, args...);
-}
-
-template <typename T, int kY>
-int gather(const T* u, const int* bucket, const float* sign, T* out,
-           int n_rows, int D, int Z, int mode, cudaStream_t s) {
-  const int smem = kRows * kY * Z * (int)sizeof(float);
-  if (mode == 0)
-    return launch_rows<sketch_gather_kernel<T, kY, true>>(
-        smem, n_rows, s, u, bucket, sign, out, n_rows, D, Z);
-  return launch_rows<sketch_gather_kernel<T, kY, false>>(
-      smem, n_rows, s, u, bucket, sign, out, n_rows, D, Z);
 }
 
 #define SKETCH_FOR_EACH_Y(F, ...)            \
@@ -638,17 +784,69 @@ int scatter(const void* x, const void* u, const void* ptr, const void* order,
                     Z, rows, s)
 }
 
+// The gather's tile: returns R, the rows a block, and sets *cols to Dc, the
+// columns of a slice (a multiple of the kV-column run), or returns -1 where
+// none fits.  The rule: D in the fewest slices of at most kGatherMaxCols
+// columns, split evenly; the most of kGatherRuleRows, ..., 2 and 1 rows a
+// block that leave kGatherTargetBlocks blocks, halved until the rows fit in
+// shared memory.  rows_force > 0 and cols_force > 0 force the tile (1 <= R
+// <= kGatherMaxRows; a multiple of the run with at most kGatherThreads
+// runs), -1 where it does not fit.
+int gather_plan(int n_rows, int D, int Y, int Z, int el, int rows_force,
+                int cols_force, int* cols) {
+  const int V = 16 / el;
+  if (rows_force > 0 || cols_force > 0) {
+    if (rows_force < 1 || rows_force > kGatherMaxRows || cols_force < V ||
+        cols_force % V || cols_force / V > kGatherThreads ||
+        gather_smem(rows_force, Y, Z, el) > kMaxSmem)
+      return -1;
+    *cols = cols_force;
+    return rows_force;
+  }
+  const int slices = (D + kGatherMaxCols - 1) / kGatherMaxCols;
+  int R = 1;
+  for (int cand = kGatherRuleRows; cand > 1; cand /= 2)
+    if ((long long)((n_rows + cand - 1) / cand) * slices >=
+        kGatherTargetBlocks) {
+      R = cand;
+      break;
+    }
+  while (R > 1 && gather_smem(R, Y, Z, el) > kMaxSmem) R /= 2;
+  if (gather_smem(R, Y, Z, el) > kMaxSmem) return -1;
+  *cols = ((D + slices - 1) / slices + V - 1) / V * V;
+  return R;
+}
+
+template <typename T, int kY>
+int gather_y(const T* u, const int* gidx, T* out, int n_rows, int D, int Z,
+             int mode, int R, int Dc, cudaStream_t s) {
+  constexpr int el = (int)sizeof(T);
+  const int smem = gather_smem(R, kY, Z, el);
+  const int runs = Dc / (16 / el);
+  const dim3 grid((n_rows + R - 1) / R, (D + Dc - 1) / Dc);
+  const dim3 block(runs, gather_row_groups(R, runs));
+  if (mode == 0)
+    return launch_blocks<sketch_gather_kernel<T, kY, true>>(
+        smem, grid, block, s, u, gidx, out, n_rows, D, Z, R, Dc);
+  return launch_blocks<sketch_gather_kernel<T, kY, false>>(
+      smem, grid, block, s, u, gidx, out, n_rows, D, Z, R, Dc);
+}
+
 template <typename T>
-int gather_any(const void* u, const void* bucket, const void* sign, void* out,
-               int n_rows, int D, int Y, int Z, int mode, void* stream) {
+int gather(const void* u, const void* gidx, void* out, int n_rows, int D,
+           int Y, int Z, int mode, int rows_force, int cols_force,
+           void* stream) {
   if (n_rows <= 0) return 0;
   if (D <= 0 || Z <= 0 || Y < 1 || Y > kMaxY || mode < 0 || mode > 1)
     return (int)cudaErrorInvalidValue;
+  int Dc = 0;
+  const int R = gather_plan(n_rows, D, Y, Z, (int)sizeof(T), rows_force,
+                            cols_force, &Dc);
+  if (R < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  SKETCH_FOR_EACH_Y(gather, static_cast<const T*>(u),
-                    static_cast<const int*>(bucket),
-                    static_cast<const float*>(sign), static_cast<T*>(out),
-                    n_rows, D, Z, mode, s)
+  SKETCH_FOR_EACH_Y(gather_y, static_cast<const T*>(u),
+                    static_cast<const int*>(gidx), static_cast<T*>(out),
+                    n_rows, D, Z, mode, R, Dc, s)
 }
 
 }  // namespace
@@ -719,19 +917,43 @@ extern "C" int sketch_scatter_plan(int n_rows, int D, int Y, int Z, int mode,
   return 0;
 }
 
-// u (n_rows, Y, Z) -> out (n_rows, D) of the same type; bucket (Y, D) int32,
-// sign (Y, D) float32.  mode 0 is the median decode, mode 1 the sum over y
-// (compress's backward).  Shared memory holds 4 Y Z floats.
-extern "C" int sketch_gather_bf16(const void* u, const void* bucket,
-                                  const void* sign, void* out, int n_rows,
-                                  int D, int Y, int Z, int mode, void* stream) {
-  return gather_any<__nv_bfloat16>(u, bucket, sign, out, n_rows, D, Y, Z, mode,
-                                   stream);
+// u (n_rows, Y, Z) -> out (n_rows, D) of the same type; gidx (Y, D) int32,
+// the plan's packed index: bucket[y, d] where sign[y, d] = +1, ~bucket[y, d]
+// where it is -1.  mode 0 is the median decode, mode 1 the sum over y
+// (compress's backward).  rows = cols = 0 takes gather_plan's tile (what the
+// port calls); rows R and cols Dc both > 0 force the tile, for timing and
+// testing (an error if it does not fit or Dc is not a multiple of the
+// 16-byte run).
+extern "C" int sketch_gather_bf16(const void* u, const void* gidx, void* out,
+                                  int n_rows, int D, int Y, int Z, int mode,
+                                  int rows, int cols, void* stream) {
+  return gather<__nv_bfloat16>(u, gidx, out, n_rows, D, Y, Z, mode, rows,
+                               cols, stream);
 }
 
-extern "C" int sketch_gather_f32(const void* u, const void* bucket,
-                                 const void* sign, void* out, int n_rows,
-                                 int D, int Y, int Z, int mode, void* stream) {
-  return gather_any<float>(u, bucket, sign, out, n_rows, D, Y, Z, mode,
-                           stream);
+extern "C" int sketch_gather_f32(const void* u, const void* gidx, void* out,
+                                 int n_rows, int D, int Y, int Z, int mode,
+                                 int rows, int cols, void* stream) {
+  return gather<float>(u, gidx, out, n_rows, D, Y, Z, mode, rows, cols,
+                       stream);
+}
+
+// The gather's tile for these shapes (rows = cols = 0: the rule's; both > 0:
+// that tile forced): out[0] the rows a block (-1 where it does not fit),
+// out[1] the columns of a slice, out[2] the blocks, out[3] the dynamic
+// shared memory in bytes and out[4] the threads a block.  Lets the caller
+// check its mirror of the rule (kernels/count_sketch/ops.py) and print the
+// grid.
+extern "C" int sketch_gather_plan(int n_rows, int D, int Y, int Z,
+                                  int elem_bytes, int rows, int cols,
+                                  int* out) {
+  int Dc = 0;
+  const int R = gather_plan(n_rows, D, Y, Z, elem_bytes, rows, cols, &Dc);
+  const int runs = R > 0 ? Dc / (16 / elem_bytes) : 0;
+  out[0] = R;
+  out[1] = R > 0 ? Dc : 0;
+  out[2] = R > 0 ? (n_rows + R - 1) / R * ((D + Dc - 1) / Dc) : 0;
+  out[3] = R > 0 ? gather_smem(R, Y, Z, elem_bytes) : 0;
+  out[4] = R > 0 ? runs * gather_row_groups(R, runs) : 0;
+  return 0;
 }

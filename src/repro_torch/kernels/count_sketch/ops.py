@@ -17,9 +17,10 @@ Their ``launches`` attributes count kernel launches.
 
 A plan is any object with ``bucket`` (Y, D) int32, ``sign`` (Y, D) float32,
 ``z``, the inverse index ``ptr`` (Y Z + 1,) / ``sidx`` (Y D,) int32 (each
-entry d signed: ``~d`` where the sign is -1) and the lists' ``order``
-(Y Z,) int32, longest first, that :class:`repro_torch.core.sketch.SketchPlan`
-builds.
+entry d signed: ``~d`` where the sign is -1), the lists' ``order``
+(Y Z,) int32, longest first, and the packed index ``gidx`` (Y, D) int32
+(``bucket``, or ``~bucket`` where the sign is -1), that
+:class:`repro_torch.core.sketch.SketchPlan` builds.
 
 The scatter has two routes behind the same C functions: the tile route (R
 rows a block, copied in by bulk copies; the median backward's network run
@@ -27,6 +28,10 @@ once a column into shared memory) wherever its shared memory fits, else
 the first, simpler kernel (4 rows a block, the rows route).  :func:`_scatter_plan` is
 the C rule's twin and :func:`_scatter_smem` its shared-memory layout's, so
 that a CPU test can pin both; :func:`_plan_scatter` asks the built library.
+The gather has one kernel, a tile of R rows by a slice of Dc columns a
+block (rows of u by bulk copies, ``gidx`` by 16-byte loads, 16-byte
+stores); :func:`_gather_plan` and :func:`_gather_smem` are its rule's and
+layout's twins, :func:`_plan_gather` the library's answer (with the grid).
 """
 from __future__ import annotations
 
@@ -47,15 +52,22 @@ MAX_SHARED_BYTES = 232448            # per block on sm_90
 # and kScatterTargetBlocks
 _SCATTER_MAX_ROWS = (8, 4)
 _SCATTER_TARGET_BLOCKS = 128
+# the gather: kGatherRuleRows, kGatherTargetBlocks, kGatherMaxCols and
+# kGatherThreads (also the most column runs a forced tile may have)
+_GATHER_RULE_ROWS = 8
+_GATHER_TARGET_BLOCKS = 256
+_GATHER_MAX_COLS = 512
+_GATHER_THREADS = 256
 _SOURCES = ("count_sketch.cu",)
 _V = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"sketch_scatter_plan": ([_I] * 6 + [ctypes.POINTER(_I)], _I)}
+_SIGNATURES = {"sketch_scatter_plan": ([_I] * 6 + [ctypes.POINTER(_I)], _I),
+               "sketch_gather_plan": ([_I] * 7 + [ctypes.POINTER(_I)], _I)}
 for _t in ("bf16", "f32"):
     _SIGNATURES[f"sketch_scatter_{_t}"] = ([_V] * 8 + [_I] * 5 + [_V], _I)
     _SIGNATURES[f"sketch_scatter_route_{_t}"] = ([_V] * 8 + [_I] * 6 + [_V],
                                                  _I)
-    _SIGNATURES[f"sketch_gather_{_t}"] = ([_V] * 4 + [_I] * 5 + [_V], _I)
+    _SIGNATURES[f"sketch_gather_{_t}"] = ([_V] * 3 + [_I] * 7 + [_V], _I)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -122,6 +134,49 @@ def _plan_scatter(T: int, D: int, Y: int, Z: int, median_bwd: bool, dtype):
     return None if out[0] < 0 else tuple(out)
 
 
+def _gather_smem(rows: int, Y: int, Z: int, el: int) -> int:
+    """Bytes of dynamic shared memory of a gather block of ``rows`` rows:
+    the twin of ``gather_smem`` in ``csrc/count_sketch.cu`` (an mbarrier a
+    row, and the rows of u with 16 bytes of room for their alignment)."""
+    return _round16(rows * 8) + _round16(rows * Y * Z * el) + 16
+
+
+def _gather_plan(T: int, D: int, Y: int, Z: int, dtype):
+    """The gather's tile for these shapes, ``(rows, cols)``: D in the fewest
+    slices of at most 512 columns, split evenly and rounded up to the
+    thread's 16-byte run of columns; the most of 8, 4, 2 and 1 rows a
+    block that leave 256 blocks, halved until the rows fit in shared
+    memory; ``None`` where one row does not fit.  The twin of
+    ``gather_plan`` in ``csrc/count_sketch.cu``."""
+    el = torch.empty((), dtype=dtype).element_size()
+    run = 16 // el
+    slices = -(-D // _GATHER_MAX_COLS)
+    rows, cand = 1, _GATHER_RULE_ROWS
+    while cand > 1:
+        if -(-T // cand) * slices >= _GATHER_TARGET_BLOCKS:
+            rows = cand
+            break
+        cand //= 2
+    while rows > 1 and _gather_smem(rows, Y, Z, el) > MAX_SHARED_BYTES:
+        rows //= 2
+    if _gather_smem(rows, Y, Z, el) > MAX_SHARED_BYTES:
+        return None
+    return rows, -(-(-(-D // slices)) // run) * run
+
+
+def _plan_gather(T: int, D: int, Y: int, Z: int, dtype, rows: int = 0,
+                 cols: int = 0):
+    """The C library's own answer: (rows, cols, blocks, shared memory bytes,
+    threads a block) of the rule's tile, or of the tile ``rows`` x ``cols``
+    where both are given, or ``None`` where it does not fit (needs the built
+    library; held against :func:`_gather_plan` on the card)."""
+    out = (ctypes.c_int * 5)()
+    library().sketch_gather_plan(T, D, Y, Z,
+                                 torch.empty((), dtype=dtype).element_size(),
+                                 rows, cols, out)
+    return None if out[0] < 0 else tuple(out)
+
+
 def sketch_scatter(x, plan, u=None):
     """Compress x (..., D) -> (..., Y, Z); with ``u`` (..., Y, Z), the
     median decode's backward instead: x is the gradient of the decoded
@@ -166,12 +221,17 @@ def sketch_gather(u, plan, *, median: bool = True):
 sketch_gather.launches = 0
 
 
-def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None) -> bool:
+def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None,
+            cols=None) -> bool:
     """Check the operands and launch the kernel over ``n_rows`` rows (of
     D features for the scatter's input, of Y x Z for the gather's) into
     ``out``; returns whether it launched (no rows launch nothing).
     ``rows`` forces the scatter's route (a tile route's rows a block, or
-    ``"rows"`` for the rows route), for timing and testing only."""
+    ``"rows"`` for the rows route), ``rows`` and ``cols`` (both or neither)
+    the gather's tile, for timing and testing only."""
+    if kind == "gather" and (rows is None) != (cols is None):
+        raise ValueError(f"sketch_gather: a forced tile needs rows and cols, "
+                         f"got rows={rows}, cols={cols}")
     if x.device.type != "cuda":
         raise ValueError(f"sketch_{kind}: no kernel for device {x.device}")
     suffix = _SUFFIX.get(x.dtype)
@@ -185,12 +245,14 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None) -> bool:
     if u is not None and (u.dtype != x.dtype or u.device != x.device):
         raise TypeError(f"sketch_{kind}: u is {u.dtype} on {u.device}, x "
                         f"is {x.dtype} on {x.device}")
-    wants = [("bucket", plan.bucket, torch.int32),
-             ("sign", plan.sign, torch.float32)]
     if kind == "scatter":
-        wants += [("ptr", plan.ptr, torch.int32),
-                  ("sidx", plan.sidx, torch.int32),
-                  ("order", plan.order, torch.int32)]
+        wants = [("bucket", plan.bucket, torch.int32),
+                 ("sign", plan.sign, torch.float32),
+                 ("ptr", plan.ptr, torch.int32),
+                 ("sidx", plan.sidx, torch.int32),
+                 ("order", plan.order, torch.int32)]
+    else:
+        wants = [("gidx", plan.gidx, torch.int32)]
     for name, t, dtype in wants:
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise TypeError(f"sketch_{kind}: plan.{name} must be contiguous "
@@ -200,7 +262,7 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None) -> bool:
         fits = _scatter_plan(n_rows, D, Y, Z, u is not None,
                              x.dtype) is not None
     else:
-        fits = ROWS_PER_BLOCK * Y * Z * 4 <= MAX_SHARED_BYTES
+        fits = _gather_plan(n_rows, D, Y, Z, x.dtype) is not None
     if not fits:
         raise ValueError(f"sketch_{kind}: D={D}, Y*Z={Y * Z} need more "
                          f"shared memory than a block has")
@@ -224,8 +286,8 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None) -> bool:
                     *args, -1 if rows == "rows" else rows, stream)
         else:
             err = getattr(lib, f"sketch_gather_{suffix}")(
-                xc.data_ptr(), plan.bucket.data_ptr(), plan.sign.data_ptr(),
-                out.data_ptr(), n_rows, D, Y, Z, mode, stream)
+                xc.data_ptr(), plan.gidx.data_ptr(), out.data_ptr(), n_rows,
+                D, Y, Z, mode, rows or 0, cols or 0, stream)
     if err != 0:
         raise RuntimeError(f"sketch_{kind} kernel launch failed: CUDA error "
                            f"{err} (rows={n_rows}, D={D}, Y={Y}, Z={Z}, "

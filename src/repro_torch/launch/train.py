@@ -68,9 +68,11 @@ def make_train_step(cfg: ArchConfig, *, optimizer: Optional[AdamW] = None,
 
     If the batch carries a ``'_channel'`` entry (u, v, bucket, sign) and
     ``elsa_z`` is set, the ELSA tripartite split channel is applied at the
-    Eq. 8-9 boundaries inside the layer stack.  The channel, the sketch's
-    inverse index included, is built from those tensors on every call, as
-    the JAX package builds it inside its step.
+    Eq. 8-9 boundaries inside the layer stack.  The channel is built from
+    those tensors on every call, as the JAX package builds it inside its
+    step; the sketch's plan (its inverse and packed indices) too, unless the
+    entry also carries it as ``plan``, as the launcher's does, which builds
+    it once for all its steps.
 
     ``use_flash`` is accepted and changes nothing, as in the JAX package
     (which takes the flag and does not pass it on): the port's cache-free
@@ -86,9 +88,11 @@ def make_train_step(cfg: ArchConfig, *, optimizer: Optional[AdamW] = None,
     def single_loss(frozen, lp, batch, channel_params=None):
         fwd = dict(window=window, chunk=chunk, remat=True)
         if channel_params is not None and cfg.family in ("dense", "moe"):
-            ch = Channel(SSOP(channel_params["u"], channel_params["v"]),
-                         SketchPlan(channel_params["bucket"],
-                                    channel_params["sign"], elsa_z))
+            plan = channel_params.get("plan")
+            if plan is None:
+                plan = SketchPlan(channel_params["bucket"],
+                                  channel_params["sign"], elsa_z)
+            ch = Channel(SSOP(channel_params["u"], channel_params["v"]), plan)
             fwd.update(boundaries=elsa_boundaries(cfg), channel=ch)
         logits, aux = model.forward(cfg, frozen, lp, batch, **fwd)
         return zoo.loss_fn(cfg, logits, batch["tokens"], aux)
@@ -233,6 +237,7 @@ def _main(argv=None):
     if args.elsa and cfg.family in ("dense", "moe"):
         _, elsa_z = elsa_channel_specs(cfg)
         ch = channel_params(cfg, elsa_z, device)
+        ch["plan"] = SketchPlan(ch["bucket"], ch["sign"], elsa_z)
     step = make_train_step(cfg, optimizer=opt, elsa_z=elsa_z)
     batches = batch_stream(cfg, args.batch, args.seq, device)
 

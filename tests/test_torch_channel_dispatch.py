@@ -1,17 +1,19 @@
 """Which route the channel's SS-OP and scatter kernels take for a shape, the
-scatter's shared-memory mirror, and the plan's signed index.
+gather's tile, the scatter's and the gather's shared-memory mirrors, and the
+plan's signed and packed indexes.
 
 ``csrc/ssop.cu`` and ``csrc/count_sketch.cu`` each choose a route by shape:
 SS-OP the tile route (D split over a cluster, H read once by bulk copies)
 where rows of H take 16-byte copies and its shared memory fits, else the
 rows route; the scatter a tile of 1 to 8 rows a block where its shared
 memory fits, else the rows route (4 rows a block), else nothing.
-``ssop.ops._tile_plan``, ``count_sketch.ops._scatter_plan`` and
-``_scatter_smem`` are the C rules' twins (``chip_smoke.py`` phase 3b and the
-card tests hold them against the built library's own answer); these tests
-pin what they say for the paths' shapes and that no shape the kernels took
-before the tile routes is refused now.  On the CPU the wrappers take the
-plain versions and launch nothing.
+The gather takes a tile of R rows by a slice of Dc columns a block.
+``ssop.ops._tile_plan``, ``count_sketch.ops._scatter_plan``,
+``_scatter_smem``, ``_gather_plan`` and ``_gather_smem`` are the C rules'
+twins (``chip_smoke.py`` phase 3b and the card tests hold them against the
+built library's own answer); these tests pin what they say for the paths'
+shapes and that no shape the kernels took before the tile routes is refused
+now.  On the CPU the wrappers take the plain versions and launch nothing.
 """
 import numpy as np
 import pytest
@@ -191,3 +193,113 @@ def test_signed_index_holds_the_jax_plans_buckets_and_signs(d, y, z, seed):
             np.testing.assert_array_equal(bucket[yy, dec[ks]], b)
             np.testing.assert_array_equal(
                 sign[yy, dec[ks]], np.where(sidx[ks] < 0, -1.0, 1.0))
+
+
+# the gather's tile (rows a block, columns a slice) at each path's shape
+GATHER_TILES = {"olmo-1b": (8, 512), "bert-base": (8, 384)}
+
+
+@pytest.mark.parametrize("d,y,z,seed", [(256, 3, 40, 0), (2048, 3, 325, 42),
+                                        (768, 3, 121, 7), (100, 8, 7, 5)])
+def test_packed_index_holds_the_jax_plans_buckets_and_signs(d, y, z, seed):
+    """``gidx`` holds bucket[y, d] where the sign is +1 and ~bucket[y, d]
+    where it is -1: decoded, the JAX plan's buckets and signs (made by the
+    same numpy calls), bit for bit."""
+    plan = sketch.make_plan(d, y, z, seed, device="cpu")
+    jplan = jsketch.make_plan(d, y, z, seed)
+    g = plan.gidx.numpy()
+    assert plan.gidx.dtype == torch.int32 and g.shape == (y, d)
+    assert plan.gidx.is_contiguous()
+    np.testing.assert_array_equal(np.where(g < 0, ~g, g),
+                                  np.asarray(jplan.bucket))
+    np.testing.assert_array_equal(np.where(g < 0, -1.0, 1.0).astype(
+        np.float32), np.asarray(jplan.sign))
+
+
+@pytest.mark.parametrize("path", PATHS, ids=[p[0] for p in PATHS])
+def test_each_path_takes_its_gather_tile(path):
+    """olmo-1b: D 2048 in 4 slices of 512, 8 rows a block (256 blocks of
+    64 runs x 4 row groups); the federation: D 768 in 2 slices of 384, 8
+    rows a block (512 blocks of 96 runs x 2 row groups).  Both fill the
+    132 SMs with more than the first gather's 8 warps each."""
+    name, dtype, T, D, r, Y, Z = path[:7]
+    rows, cols = GATHER_TILES[name]
+    assert cs_ops._gather_plan(T, D, Y, Z, dtype) == (rows, cols)
+    blocks = -(-T // rows) * -(-D // cols)
+    runs = cols // (16 // torch.empty((), dtype=dtype).element_size())
+    groups = {"olmo-1b": 4, "bert-base": 2}[name]
+    assert (blocks, runs) == {"olmo-1b": (256, 64),
+                              "bert-base": (512, 96)}[name]
+    assert runs * groups <= cs_ops._GATHER_THREADS and groups <= rows
+    assert blocks * runs * groups / 32 / 132 > 8
+
+
+def test_gather_shared_memory_mirror_at_the_paths_tiles():
+    """``gather_smem`` by hand: an mbarrier a row (rounded to 16 bytes) and
+    the rows of u in their own type (+ 16 for the shift)."""
+    # olmo-1b: 8 rows of Y Z = 975 bf16 (15600 bytes)
+    assert cs_ops._gather_smem(8, 3, 325, 2) == 64 + 15600 + 16
+    # the federation: 8 rows of Y Z = 363 f32 (11616 bytes)
+    assert cs_ops._gather_smem(8, 3, 121, 4) == 64 + 11616 + 16
+    # rows whose bytes are not a 16-byte multiple round up
+    assert cs_ops._gather_smem(3, 3, 325, 2) == 32 + 5856 + 16
+    assert [GATHER_TILES[p[0]] for p in PATHS] == [(8, 512), (8, 384)]
+
+
+@pytest.mark.parametrize("Y", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_no_gather_shape_the_first_kernel_took_is_refused(Y, dtype):
+    """Every (D, Y, Z) whose 4 rows of Y Z floats fit a block (what the
+    wrapper accepted for the first gather) has a tile now, at every T, and
+    its shared memory fits; the tile's columns are whole 16-byte runs, and
+    a larger tile of the rule's would not fit or leave too few blocks."""
+    el = torch.empty((), dtype=dtype).element_size()
+    run = 16 // el
+    z_max = cs_ops.MAX_SHARED_BYTES // (4 * Y * 4)
+    for D in (1, 7, 50, 768, 2048, 6000, 60000):
+        slices = -(-D // cs_ops._GATHER_MAX_COLS)
+        for Z in (1, 37, z_max // 2, z_max):
+            for T in (1, 5, 512, 2048, 65536):
+                plan = cs_ops._gather_plan(T, D, Y, Z, dtype)
+                assert plan is not None, (T, D, Y, Z)
+                rows, cols = plan
+                assert cs_ops._gather_smem(rows, Y, Z, el) <= \
+                    cs_ops.MAX_SHARED_BYTES
+                assert cols % run == 0 and run <= cols <= max(
+                    cs_ops._GATHER_MAX_COLS, run)
+                assert -(-D // cols) == slices
+                assert 1 <= rows <= cs_ops._GATHER_RULE_ROWS
+                bigger = rows * 2
+                assert bigger > cs_ops._GATHER_RULE_ROWS or \
+                    -(-T // bigger) * slices < \
+                    cs_ops._GATHER_TARGET_BLOCKS or \
+                    cs_ops._gather_smem(bigger, Y, Z, el) > \
+                    cs_ops.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("T,rows", [(1, 1), (128, 1), (255, 2), (256, 2),
+                                    (512, 4), (1024, 8), (2048, 8),
+                                    (65536, 8)])
+def test_gather_rows_a_block_grow_with_t(T, rows):
+    # the federation's D 768 in two slices: the most rows, up to 8, that
+    # leave 256 blocks
+    assert cs_ops._gather_plan(T, 768, 3, 121, torch.float32) == (rows, 384)
+
+
+@pytest.mark.parametrize("D,cols", [(1, 8), (50, 56), (512, 512),
+                                    (513, 264), (2048, 512), (2056, 416),
+                                    (60000, 512)])
+def test_gather_slices_split_d_evenly(D, cols):
+    # the fewest slices of at most 512 columns, rounded up to 8 bf16
+    # columns (a 16-byte run): D 2056 in 5 slices of 412, so 416
+    assert cs_ops._gather_plan(512, D, 3, 37, torch.bfloat16)[1] == cols
+
+
+@pytest.mark.parametrize("rows,cols", [(8, None), (None, 384)])
+def test_a_forced_gather_tile_needs_rows_and_cols(rows, cols):
+    """Forcing half a tile is refused before anything is launched."""
+    plan = sketch.make_plan(768, 3, 121, 0, device="cpu")
+    with pytest.raises(ValueError, match="rows and cols"):
+        cs_ops._launch("gather", torch.zeros(4, 3, 121), None, plan,
+                       torch.empty(4, 768), 4, rows=rows, cols=cols)

@@ -482,6 +482,100 @@ def test_sketch_scatter_is_deterministic(cuda):
         assert torch.equal(cs_ops.sketch_scatter(gy, plan, u=u), first[1])
 
 
+# The edges of the gather's tiles: the paths' shapes (olmo-1b's D 2048 in
+# four slices, the federation's D 768 in two), T 1, ragged D and Z with an
+# even and an odd Y, rows of u and of the output that are not 16-byte
+# multiples (D 50, Y Z 56; D 333), Y 1 to 8, and a D whose last slice is
+# ragged (2056: four slices of 416 and one of 392)
+GATHER_EDGES = [(512, 2048, 3, 325), (2048, 768, 3, 121), (1, 2048, 3, 325),
+                (5, 2000, 4, 37), (9, 50, 8, 7), (3, 64, 1, 9),
+                (13, 130, 2, 11), (7, 333, 5, 13), (10, 96, 6, 5),
+                (17, 300, 7, 21), (6, 2056, 3, 40)]
+
+
+def _gather_tiles(T, D, Y, Z, dtype):
+    """Every forced tile phase 3b's sweep could take at this shape: rows 1
+    to 32 by D in 1, 2, 4 and 8 slices and the narrowest slice (one run),
+    where its shared memory fits."""
+    el = torch.empty((), dtype=dtype).element_size()
+    run = 16 // el
+    cols = {-(-(-(-D // n)) // run) * run for n in (1, 2, 4, 8)} | {run}
+    return [(R, Dc) for R in (1, 2, 4, 8, 16, 32) for Dc in sorted(cols)
+            if Dc // run <= cs_ops._GATHER_THREADS
+            and cs_ops._gather_smem(R, Y, Z, el)
+            <= cs_ops.MAX_SHARED_BYTES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GATHER_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sketch_gather_edges_on_each_route(cuda, shape, dtype):
+    """Decompress (held by equality: it only gathers, negates and compares)
+    and compress backward, with a quarter of the buckets zeroed so the
+    median meets ties, through the rule's tile and every forced tile that
+    fits, on aligned and on offset (unaligned) rows of u and of the output;
+    the library's tile is its Python twin's, and its shared memory the
+    mirror's."""
+    T, D, Y, Z = shape
+    plan, _, u, _ = _sketch_inputs(cuda, T, D, Y, Z, dtype)
+    b, s = plan.bucket, plan.sign
+    assert torch.equal(torch.where(plan.gidx < 0, ~plan.gidx, plan.gidx), b)
+    assert torch.equal(plan.gidx < 0, s < 0)
+    el = u.element_size()
+    twin = cs_ops._gather_plan(T, D, Y, Z, dtype)
+    R, Dc, blocks, smem, threads = cs_ops._plan_gather(T, D, Y, Z, dtype)
+    assert (R, Dc) == twin and smem == cs_ops._gather_smem(R, Y, Z, el)
+    assert blocks == -(-T // R) * -(-D // Dc)
+    runs = Dc * el // 16
+    assert threads % runs == 0 and threads // runs <= R
+    assert threads <= max(runs, cs_ops._GATHER_THREADS)
+    assert cs_ops._plan_gather(T, D, Y, Z, dtype, R, Dc) == (
+        R, Dc, blocks, smem, threads)
+    for median in (True, False):
+        want = (cs_ref.decompress_ref(u, b, s) if median
+                else cs_ref.gather_sum_ref(u, b, s))
+
+        def held(got):
+            torch.cuda.synchronize()
+            if median:
+                assert got.dtype == want.dtype and torch.equal(got, want)
+            else:
+                _close(got, want, dtype)
+        before = cs_ops.sketch_gather.launches
+        held(cs_ops.sketch_gather(u, plan, median=median))
+        assert cs_ops.sketch_gather.launches == before + 1
+        held(cs_ops.sketch_gather(_unaligned(u), plan, median=median))
+        for R, Dc in _gather_tiles(T, D, Y, Z, dtype):
+            for uu, out in ((u, torch.empty_like(want)),
+                            (_unaligned(u), _unaligned(want))):
+                out.fill_(float("nan"))     # every output must be written
+                assert cs_ops._launch("gather", uu, None, plan, out, T,
+                                      mode=0 if median else 1, rows=R,
+                                      cols=Dc)
+                held(out)
+
+
+def test_sketch_gather_refuses_a_tile_that_does_not_fit(cuda):
+    plan, _, u, _ = _sketch_inputs(cuda, 8, 768, 3, 121, torch.float32)
+    out = torch.empty(8, 768, device=cuda)
+    for R, Dc in ((33, 768), (8, 766), (8, 2048), (0, 768)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cs_ops._launch("gather", u, None, plan, out, 8, rows=R, cols=Dc)
+
+
+def test_sketch_gather_is_deterministic(cuda):
+    """No atomics, a fixed order over y: the same bits, launch after
+    launch, in both modes."""
+    plan, _, u, _ = _sketch_inputs(cuda, 2048, 768, 3, 121, torch.float32)
+    first = (cs_ops.sketch_gather(u, plan),
+             cs_ops.sketch_gather(u, plan, median=False))
+    for _ in range(5):
+        assert torch.equal(cs_ops.sketch_gather(u, plan), first[0])
+        assert torch.equal(cs_ops.sketch_gather(u, plan, median=False),
+                           first[1])
+
+
 # (B, S, H, KV, Dh, dtype, causal, window): BERT (non-causal, f32), olmo-1b
 # (causal, Dh 128, bf16), ragged lengths, GQA at llama3-8b's ratio, windows
 # with and without causality, and a long causal sequence; phase 3c of

@@ -41,6 +41,7 @@ from repro_torch.launch import train
 from repro_torch.models import common as torch_common
 from repro_torch.models import transformer, zoo
 from repro_torch.optim import AdamW, clip_by_global_norm, global_norm
+from repro_torch.optim.optimizers import tree_leaves
 
 CFG = get_config("olmo-1b").reduced().with_(num_layers=4)
 JCFG = jax_get_config("olmo-1b").reduced().with_(num_layers=4)
@@ -501,6 +502,24 @@ def test_train_step_matches_jax_f64(weights, f64, nm):
         bridge.params_to_jax_numpy({"frozen": {}, "lora": new})[1],
         jax.tree_util.tree_map(np.asarray, jnew))
     assert not np.allclose(got["m"]["blocks"]["attn"]["q_a"], 0)
+
+
+def test_train_step_takes_a_prebuilt_sketch_plan(weights):
+    """The launcher builds the sketch's plan once and passes it in the
+    step's ``_channel``: that step is, bit for bit, the one that plans the
+    sketch itself."""
+    cfg, params, chan, toks = _port(weights, torch.float32)
+    planned = {**chan, "plan": SketchPlan(chan["bucket"], chan["sign"], Z)}
+    out = []
+    for c in (chan, planned):
+        opt = AdamW(lr=3e-3)
+        step = train.make_train_step(cfg, optimizer=opt, elsa_z=Z)
+        new, _, loss = step(params["frozen"], params["lora"],
+                            opt.init(params["lora"]),
+                            {"tokens": toks, "_channel": c})
+        out.append((float(loss), tree_leaves(new)))
+    assert np.isfinite(out[0][0]) and out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
 def test_train_step_rejects_what_is_not_ported(weights):
