@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three main paths on one NVIDIA H100 (sm_90a):
-the serving path (full llama3-8b), LoRA fine-tuning through ELSA's split
-channel (full-width olmo-1b, ``launch/train.py --full --elsa``), and one
-ELSA federation of full-width bert-base
-(``Federation(..., backend="reference").run("elsa")``).
+"""Drive the PyTorch port's main paths on one NVIDIA H100 (sm_90a): the
+serving path (full llama3-8b), LoRA fine-tuning through ELSA's split
+channel (full-width olmo-1b, ``launch/train.py --full --elsa``), the ELSA
+federation of full-width bert-base (``Federation(...).run("elsa")`` on its
+default, batched backend and on the reference backend), and the
+federation of a dense decoder (full-width olmo-1b).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --channel-times-of CHECKOUT
@@ -36,7 +37,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    checked and timed;
 3c. flash attention against its plain version, forward (o, m, l) and
    gradient (the Function against autograd through the plain version), at
-   bert-base's and olmo-1b's shapes, ragged lengths, GQA at llama3-8b's
+   bert-base's and olmo-1b's shapes (olmo-1b's in bf16 and, as the
+   causal-LM federation runs it, in f32), ragged lengths, GQA at llama3-8b's
    ratio (at Dh 128 and 64), a window and S 4096 (with the peak memory of its forward and
    backward), with times, bounds and ``scaled_dot_product_attention`` as
    the library yardstick, and the time of the plain recomputing backward
@@ -62,15 +64,27 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    what building the channel each step costs;
 10. the federation: full-width bert-base (12 layers, f32, random weights
    from a seed) registered as ``"bert-base-full"``, 8 clients on 2 edges,
-   ``run("elsa")`` for 2 rounds of 4 local steps; the losses must be
-   finite and each client step must launch each kernel the number of
-   times its split implies (flash 12, one per block);
+   ``run("elsa")`` for 2 rounds of 4 local steps on the default (batched)
+   backend; the losses must be finite and each ``run_clients`` call must
+   launch each kernel real members x steps x what a client step's split
+   implies (flash 12, one per block); its wall a client step and its host
+   syncs (CUDA's sync debug mode) are reported, and one call is profiled;
+10r. the same federation on ``backend="reference"``, each client step
+   counted and one profiled;
+10c. one local step at the training lr on both backends, from the same
+   weights with the same batches: losses to 1e-6 relative, each updated
+   LoRA leaf to 1e-5 of its scale;
 10b. split-training parity: one ``split_loss`` gradient of bert-base at
    full width (f32, 4 layers) through the channel, kernel path against
    plain path, each block against its own f32-vs-f64 floor;
-11. every LoRA shape that phases 5, 8 and 10 launched (recorded while they
-   ran, with their pointers' alignment) against the plain version at
-   phase 3's tolerances, so every kernel instantiation a path ran is held.
+12. the causal-LM federation: full-width olmo-1b (16 layers, f32)
+   registered as ``"olmo-1b-full"``, 4 clients on 2 edges, the launcher's
+   8 x 64 stream, 2 rounds of 2 local steps on the default backend, with
+   phase 10's launch check (16 blocks) and finite losses;
+11. every LoRA shape that phases 5, 8, 10, 10r and 12 launched (recorded
+   while they ran, with their pointers' alignment) against the plain
+   version at phase 3's tolerances, so every kernel instantiation a path
+   ran is held.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -86,6 +100,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # --channel-times-of CHECKOUT times that checkout's channel kernels instead
@@ -103,6 +119,7 @@ from repro_torch.core.sketch import (SketchPlan, make_plan,  # noqa: E402
                                      selection_matrices)
 from repro_torch.core.split_training import Channel  # noqa: E402
 from repro_torch.core.ssop import SSOP  # noqa: E402
+from repro_torch.data.pipeline import infinite_batches  # noqa: E402
 from repro_torch.federation import FedConfig, Federation  # noqa: E402
 from repro_torch.kernels.count_sketch import ops as cs_ops  # noqa: E402
 from repro_torch.kernels.count_sketch import ref as cs_ref  # noqa: E402
@@ -116,6 +133,7 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.train import make_serve_step  # noqa: E402
 from repro_torch.models import common, zoo  # noqa: E402
 from repro_torch.models.split_api import (BertSplitModel,  # noqa: E402
+                                          CausalLMSplitModel,
                                           get_split_model,
                                           register_split_model)
 from repro_torch.models.params import init_tree  # noqa: E402
@@ -819,6 +837,7 @@ def _wrapper(kernel):
 FLASH_CASES = [
     ("bert-base", 16, 128, 12, 12, 64, torch.float32, False, 0),
     ("olmo-1b", 8, 64, 16, 16, 128, torch.bfloat16, True, 0),
+    ("olmo-1b f32", 8, 64, 16, 16, 128, torch.float32, True, 0),
     ("ragged 24", 2, 24, 12, 12, 64, torch.float32, False, 0),
     ("ragged 100", 2, 100, 16, 16, 128, torch.bfloat16, True, 0),
     ("ragged 1000", 1, 1000, 12, 12, 64, torch.float32, True, 0),
@@ -1256,7 +1275,7 @@ def _recording_lora_calls(calls):
 
 
 def path_shapes_phase(calls):
-    """Every LoRA shape the three main paths launched (phases 5, 8 and 10)
+    """Every LoRA shape the main paths launched (phases 5, 8, 10, 10r, 12)
     against the plain version at phase 3's tolerances, on new inputs at the
     byte offsets the path gave, so each kernel and each instantiation that
     a path ran is checked (the library's route held against its twin)."""
@@ -1647,33 +1666,240 @@ def _bert_full(num_layers=None, dtype=None, **overrides):
     return BertSplitModel(cfg)
 
 
-def federation_phase():
-    """``Federation(FedConfig(model="bert-base-full", ...),
-    backend="reference").run("elsa", global_rounds=2, steps_per_round=4)``
-    on the card in f32, each client step clipped to a global norm of 1.
-    Every gradient step (warm-up and rounds) is
-    wrapped to read the kernels' counts before and after it: each must
-    launch what its split implies (4 LoRA projections and one flash
-    attention per block, the channel's 16 launches at its two cuts).  The
-    probe and evaluation forwards launch too, outside the steps."""
-    register_split_model("bert-base-full", _bert_full)
+def _bert_fed_config():
     # clip_norm: at full width the split model's gradient grows ~10x per
     # block towards the input (LoRA q_b's norm 8e10 at block 0 at the
     # init), so unclipped steps at lr 2e-2 reach NaN by the third warm-up
     # step; the JAX package's convergence stack clips for this reason
-    fed_cfg = FedConfig(model="bert-base-full", layers=12, n_clients=8,
-                        n_edges=2, poisoned=(3,), total_examples=1600,
-                        batch_size=16, seq_len=128, probe_q=32,
-                        local_warmup_steps=4, t_rounds=1, lr=2e-2,
-                        clip_norm=1.0)
+    register_split_model("bert-base-full", _bert_full)
+    return FedConfig(model="bert-base-full", layers=12, n_clients=8,
+                     n_edges=2, poisoned=(3,), total_examples=1600,
+                     batch_size=16, seq_len=128, probe_q=32,
+                     local_warmup_steps=4, t_rounds=1, lr=2e-2,
+                     clip_norm=1.0)
+
+
+def _syncs_of(fn):
+    """``fn()`` with CUDA's sync debug mode on: its result, and where each
+    host sync it made came from: the line that synced and, when that is
+    not the port's, the port's innermost line on the stack.  The syncs
+    this script makes to time a step are left out."""
+    found = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if not f.filename.endswith("warnings.py")][:-1]
+        ours = [f for f in frames if f.filename.startswith(ROOT)]
+        if ours and ours[-1].filename == os.path.abspath(__file__):
+            return                          # the script's own timing sync
+        where = [frames[-1]] + ([ours[-1]] if ours and ours[-1]
+                                is not frames[-1] else [])
+        found.append(" <- ".join(
+            f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} ({f.line})"
+            for f in where))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, found
+
+
+def _count_run_clients(engine, per_step, calls):
+    """Wrap ``engine.run_clients`` so that each call records its wall (it
+    ends in the losses' transfer, a sync), its kernels' launches, which
+    must be exactly members x steps x ``per_step``, and its host syncs,
+    into ``calls``.  Returns the unwrapped method."""
+    run = engine.run_clients
+
+    def counted(theta, clients, splits, channels, batches, **kw):
+        steps = len(batches[clients[0]])
+        c0, t0 = _counts(), time.time()
+        out, syncs = _syncs_of(lambda: run(theta, clients, splits, channels,
+                                           batches, **kw))
+        ms = (time.time() - t0) * 1e3
+        launches = {k: v - c0[k] for k, v in _counts().items()}
+        want = {k: v * len(clients) * steps for k, v in per_step.items()}
+        check(launches == want,
+              f"run_clients of {len(clients)} clients x {steps} steps "
+              f"launched {launches}, not {want}")
+        calls.append(dict(clients=[int(n) for n in clients], steps=steps,
+                          ms=ms, client_step_ms=ms / (len(clients) * steps),
+                          buckets=len({splits[n] for n in clients}),
+                          launches=launches, syncs=syncs))
+        return out
+    engine.run_clients = counted
+    return run
+
+
+def _memory_base():
+    """The bytes allocated before a federation is built, with the peak
+    reset there: the federation's own peak is the peak above them."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_gib(base):
+    """The peak allocated since :func:`_memory_base` above ``base``."""
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _record_assign(fed, assigned):
+    assign = fed._assign_groups
+
+    def recorded(method, rng):
+        out = assign(method, rng)
+        assigned.append(out)
+        return out
+    fed._assign_groups = recorded
+
+
+def _run_federation(fed, rounds, steps):
+    """The main path: ``fed.run("elsa")`` with every ``run_clients`` call
+    counted, the kernels' counts zeroed just before and read just after.
+    Returns (history, wall s, counts, calls, assigned groups)."""
+    per_step = _per_step(fed.cfg.num_layers, remat=False)
+    calls, assigned = [], []
+    run = _count_run_clients(fed.engine, per_step, calls)
+    _record_assign(fed, assigned)
+    _zero_counts()                                   # the main path starts
+    t0 = time.time()
+    hist = fed.run("elsa", global_rounds=rounds, steps_per_round=steps)
+    wall = time.time() - t0
+    counts = _counts()                               # the main path ends
+    fed.engine.run_clients = run
+    losses = [l for ls in hist["client_losses"].values() for l in ls]
+    check(len(losses) > 0 and all(np.isfinite(losses))
+          and all(np.isfinite(hist["loss"])), f"losses {hist['loss']}")
+    check(len(hist["accuracy"]) == rounds, f"history {hist}")
+    check(all(v > 0 for v in counts.values()), f"launches {counts}")
+    warm = fed.fed.n_clients * fed.fed.local_warmup_steps
+    check(calls[0]["steps"] * len(calls[0]["clients"]) == warm,
+          f"warm-up call {calls[0]}")
+    return hist, wall, counts, calls, assigned[0]
+
+
+def _round_walls(calls):
+    """The wall a client step over the rounds' ``run_clients`` calls (the
+    first call is the warm-up): their total wall over their client steps,
+    and each call's."""
+    rounds = calls[1:]
+    total = sum(c["ms"] for c in rounds) / sum(
+        len(c["clients"]) * c["steps"] for c in rounds)
+    return total, [c["client_step_ms"] for c in rounds]
+
+
+def federation_phase():
+    """``Federation(FedConfig(model="bert-base-full", ...)).run("elsa",
+    global_rounds=2, steps_per_round=4)`` on the card in f32 on the default
+    (batched) backend, each client step clipped to a global norm of 1.
+    Every ``run_clients`` call (the warm-up, then one an edge group and
+    round) must launch each kernel real members x steps x what a client
+    step implies (4 LoRA projections and one flash attention per block, the
+    channel's 16 launches at its two cuts); its wall and host syncs are
+    recorded.  Then where a batched client step's time goes: one
+    ``run_clients`` call of every assigned client for one step."""
+    fed_cfg = _bert_fed_config()
+    base = _memory_base()
+    fed = Federation(fed_cfg, device="cuda")
+    cfg = fed.cfg
+    check(fed.backend == "batched", f"default backend {fed.backend}")
+    check((cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.vocab_size)
+          == (768, 12, 12, 30522), f"not full width: {cfg}")
+    hist, wall, counts, calls, (groups, div, trust) = _run_federation(
+        fed, rounds=2, steps=4)
+    peak = _peak_gib(base)
+    members = sorted(n for g in groups.values() for n in g)
+    excluded = [n for n in range(fed_cfg.n_clients) if n not in members]
+    step_ms, call_ms = _round_walls(calls)
+    syncs = [len(c["syncs"]) for c in calls]
+    print(f"federation, batched (bert-base full width, f32, 8 clients, 2 "
+          f"edges): groups { {k: v for k, v in groups.items() if v} }, "
+          f"excluded {excluded}, trust {np.round(trust, 3).tolist()}")
+    print(f"  history: accuracy {hist['accuracy']}, loss "
+          f"{[round(x, 4) for x in hist['loss']]}, delta "
+          f"{[f'{x:.3e}' for x in hist['delta']]}")
+    for c in calls:
+        print(f"  run_clients: {len(c['clients'])} clients x {c['steps']} "
+              f"steps, {c['buckets']} split buckets, {c['ms']:.1f} ms "
+              f"({c['client_step_ms']:.2f} ms a client step), host syncs "
+              f"{c['syncs']}")
+    print(f"  run {wall:.1f}s; rounds: {step_ms:.2f} ms a client step "
+          f"(16 x 128 tokens); launches in the run {counts}; peak memory "
+          f"{peak:.2f} GiB (above the {base / 2 ** 30:.2f} GiB held before); "
+          f"host syncs a run_clients call {syncs}")
+
+    # where a batched client step's time goes: every assigned client, one
+    # step from the final theta, each on its first 16 examples
+    splits = {n: fed.split_for(n) for n in members}
+    channels = {n: fed.channel_for(n, fed.lora0) for n in members}
+    batches = {n: [(fed.data[n].tokens[:16], fed.data[n].labels[:16])]
+               for n in members}
+
+    def one():
+        fed.engine.run_clients(fed.last_theta, members, splits, channels,
+                               batches)
+
+    one()
+    walls = []
+    for _ in range(5):
+        t0 = time.time()
+        one()
+        walls.append((time.time() - t0) * 1e3 / len(members))
+    _, prof_syncs = _syncs_of(one)
+    prof_wall = statistics.median(walls)
+    print(f"  profile of one run_clients call ({len(members)} clients x 1 "
+          f"step), per client step:")
+    rows, busy = _profile_one(one, "federation_batched_trace.json",
+                              per=len(members))
+    print(f"  wall {prof_wall:.2f} ms a client step without the profiler "
+          f"(calls {[round(w, 1) for w in walls]}), device busy {busy:.2f} "
+          f"ms -> idle share {1 - busy / prof_wall:.1%}, "
+          f"{sum(r[1] for r in rows):.0f} kernels; host syncs of the call "
+          f"{prof_syncs}")
+    print(f"  the port's kernels, ms a client step: {_our_kernels_ms(rows)}")
+    out = dict(backend=fed.backend,
+               groups={str(k): v for k, v in groups.items()},
+               excluded=excluded, trust=list(map(float, trust)),
+               accuracy=hist["accuracy"], loss=hist["loss"],
+               delta=hist["delta"], run_s=wall, step_ms=step_ms,
+               step_ms_calls=call_ms, calls=calls, syncs_per_call=syncs,
+               launches_per_step={k: v // (len(calls[-1]["clients"])
+                                           * calls[-1]["steps"])
+                                  for k, v in calls[-1]["launches"].items()},
+               launches=counts, peak_gib=peak, base_gib=base / 2 ** 30,
+               profile=dict(
+                   clients=len(members), wall_ms=prof_wall, walls_ms=walls,
+                   device_busy_ms=busy, idle_share=1 - busy / prof_wall,
+                   syncs=prof_syncs, kernels=sum(r[1] for r in rows),
+                   our_kernels_ms=_our_kernels_ms(rows),
+                   top_kernels=[dict(ms=us / 1e3, count=c, name=key)
+                                for us, c, key in rows[:15]]))
+    return fed, out, counts
+
+
+def federation_reference_phase():
+    """Phase 10's federation on ``backend="reference"``: the sequential
+    loop, one client at a time.  Every gradient step (warm-up and rounds)
+    is wrapped to read the kernels' counts before and after it: each must
+    launch what its split implies.  The probe and evaluation forwards
+    launch too, outside the steps.  Then where one client step's time
+    goes."""
+    fed_cfg = _bert_fed_config()
+    base = _memory_base()
     fed = Federation(fed_cfg, backend="reference", device="cuda")
     cfg = fed.cfg
     check((cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.vocab_size)
           == (768, 12, 12, 30522), f"not full width: {cfg}")
     steps, assigned = [], []
-    grad_fn, assign = fed._grad_fn, fed._assign_groups
+    grad_fn = fed._grad_fn
 
     def counted_grad_fn(client, split):
         gfn = grad_fn(client, split)
@@ -1690,21 +1916,25 @@ def federation_phase():
             return out
         return step
 
-    def recorded_assign(method, rng):
-        out = assign(method, rng)
-        assigned.append(out)
+    group_steps, rounds = fed.group_steps, []
+
+    def counted_group_steps(clients, theta, n_steps, iters, **kw):
+        out, syncs = _syncs_of(lambda: group_steps(clients, theta, n_steps,
+                                                   iters, **kw))
+        rounds.append(dict(clients=len(clients), steps=n_steps,
+                           syncs=len(syncs)))
         return out
 
-    fed._grad_fn, fed._assign_groups = counted_grad_fn, recorded_assign
+    fed._grad_fn, fed.group_steps = counted_grad_fn, counted_group_steps
+    _record_assign(fed, assigned)
     _zero_counts()                                   # the main path starts
     t0 = time.time()
     hist = fed.run("elsa", global_rounds=2, steps_per_round=4)
     wall = time.time() - t0
     counts = _counts()                               # the main path ends
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = _peak_gib(base)
     groups, div, trust = assigned[0]
     members = sorted(n for g in groups.values() for n in g)
-    excluded = [n for n in range(fed_cfg.n_clients) if n not in members]
     per_step = _per_step(cfg.num_layers, remat=False)
     for st_ in steps:
         check(st_["launches"] == per_step,
@@ -1718,9 +1948,9 @@ def federation_phase():
     warm = fed_cfg.n_clients * fed_cfg.local_warmup_steps
     round_ms = [st_["ms"] for st_ in steps[warm:]]
     step_ms = statistics.median(round_ms)
-    print(f"federation (bert-base full width, f32, 8 clients, 2 edges): "
-          f"groups { {k: v for k, v in groups.items() if v} }, excluded "
-          f"{excluded}, trust {np.round(trust, 3).tolist()}")
+    print(f"federation, reference backend: groups "
+          f"{ {k: v for k, v in groups.items() if v} }, trust "
+          f"{np.round(trust, 3).tolist()}")
     print(f"  history: accuracy {hist['accuracy']}, loss "
           f"{[round(x, 4) for x in hist['loss']]}, delta "
           f"{[f'{x:.3e}' for x in hist['delta']]}")
@@ -1729,7 +1959,10 @@ def federation_phase():
           f"the {len(round_ms)} round steps; 16 x 128 tokens), run "
           f"{wall:.1f}s; launches per client step {steps[-1]['launches']}; "
           f"in the run "
-          f"{counts}; peak memory {peak:.2f} GiB")
+          f"{counts}; peak memory {peak:.2f} GiB (above the "
+          f"{base / 2 ** 30:.2f} GiB held before); host syncs a round's "
+          f"group_steps call (clients x steps: syncs) "
+          f"{[(r['clients'], r['steps'], r['syncs']) for r in rounds]}")
 
     # where a client step's time goes: one step of the first member (its
     # split and channel, its first batch, the final theta), the wall the
@@ -1758,23 +1991,76 @@ def federation_phase():
           f"idle share {1 - busy / prof_wall:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels")
     print(f"  the port's kernels, ms a client step: {_our_kernels_ms(rows)}")
-    out = dict(groups={str(k): v for k, v in groups.items()},
-               excluded=excluded, trust=list(map(float, trust)),
+    out = dict(backend=fed.backend,
+               groups={str(k): v for k, v in groups.items()},
+               trust=list(map(float, trust)),
                accuracy=hist["accuracy"], loss=hist["loss"],
                delta=hist["delta"], client_steps=len(steps),
                warmup_steps=warm, step_ms=step_ms, step_ms_all=round_ms,
                run_s=wall, launches_per_step=steps[-1]["launches"],
-               launches=counts,
-               peak_gib=peak, profile=dict(
+               launches=counts, round_calls=rounds,
+               peak_gib=peak, base_gib=base / 2 ** 30, profile=dict(
                    wall_ms=prof_wall, walls_ms=walls, device_busy_ms=busy,
                    idle_share=1 - busy / prof_wall,
                    kernels=sum(r[1] for r in rows),
                    our_kernels_ms=_our_kernels_ms(rows),
                    top_kernels=[dict(ms=us / 1e3, count=c, name=key)
                                 for us, c, key in rows[:15]]))
-    del fed
-    torch.cuda.empty_cache()
-    return out, counts
+    return fed, out, counts
+
+
+def cross_backend_phase(fed, fed_r):
+    """One local step at the training lr on both backends, from ``lora0``
+    with the same batches (iterators of the same seeds), for the clients
+    of the run's first bucket (the warm-up's: every client, on the default
+    split): ``group_steps`` on the batched federation against
+    ``client_steps`` on the reference one.  The two federations are built
+    from the same seed, and each builds its own channels (the batched
+    backend through its shared probe forward): they must be bit-equal.
+    Losses must agree to 1e-6 relative and each updated LoRA leaf to 1e-5
+    of that leaf's scale."""
+    for a, b in ((fed.lora0, fed_r.lora0), (fed.frozen, fed_r.frozen)):
+        check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b))),
+              "the two federations' weights differ")
+    bucket = list(range(fed.fed.n_clients))
+    split = fed.split_for(0, use_split=False)
+    channels_equal = all(
+        torch.equal(x, y) for n in bucket
+        for x, y in zip(fed.channel_for(n, fed.lora0).ssop,
+                        fed_r.channel_for(n, fed_r.lora0).ssop))
+    check(channels_equal, "the backends' channels differ")
+
+    def its(f):
+        return {n: infinite_batches(f.data[n].tokens, f.data[n].labels,
+                                    f.fed.batch_size, seed=777 + n)
+                for n in bucket}
+
+    got = fed.group_steps(bucket, fed.lora0, 1, its(fed), use_split=False)
+    it_r = its(fed_r)
+    want = {n: fed_r.client_steps(n, fed_r.lora0, 1, it_r[n],
+                                  use_split=False)
+            for n in bucket}
+    loss_err, leaf_err, bit_equal = 0.0, 0.0, True
+    for n in bucket:
+        (lb, sb), (lr_, sr) = got[n], want[n]
+        loss_err = max(loss_err, abs(sb - sr) / abs(sr))
+        for a, b in zip(tree_leaves(lb), tree_leaves(lr_)):
+            leaf_err = max(leaf_err, (a - b).abs().max().item()
+                           / b.abs().max().item())
+            bit_equal &= torch.equal(a, b)
+        bit_equal &= sb == sr
+    print(f"one step at lr {fed.fed.lr} on both backends, clients {bucket} "
+          f"(split {split}): largest loss difference {loss_err:.3e} "
+          f"relative (tol 1e-6), largest leaf difference {leaf_err:.3e} of "
+          f"the leaf's scale (tol 1e-5); bit-equal: {bit_equal}; the "
+          f"backends' channels bit-equal: {channels_equal}")
+    check(loss_err <= 1e-6, f"loss {loss_err:.3e}")
+    check(leaf_err <= 1e-5, f"leaf {leaf_err:.3e}")
+    return dict(clients=bucket, split=[split.p, split.q, split.o],
+                lr=fed.fed.lr, loss_rel_err=loss_err,
+                leaf_rel_err=leaf_err, bit_equal=bool(bit_equal),
+                channels_equal=bool(channels_equal))
 
 
 # ---------------------------------------------------------------------------
@@ -1883,6 +2169,75 @@ def split_parity_phase(qk_scale=0.1):
                 loss_f64=t_loss, parts=blocks, launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# 12. the causal-LM federation
+# ---------------------------------------------------------------------------
+
+def _olmo_full(num_layers=None, dtype=None, **overrides):
+    """olmo-1b at full width (d 2048, 16 heads, vocab 50304), through the
+    registry's factory hook, as ``_bert_full``."""
+    cfg = get_config("olmo-1b").with_(**overrides)
+    if num_layers is not None:
+        cfg = cfg.with_(num_layers=num_layers)
+    if dtype is not None:
+        cfg = cfg.with_(param_dtype=dtype, activation_dtype=dtype)
+    return CausalLMSplitModel(cfg)
+
+
+def causal_lm_federation_phase():
+    """The federation of a dense decoder: full-width olmo-1b (16 layers,
+    f32) registered as ``"olmo-1b-full"``, 4 clients on 2 edges, client 1
+    poisoned, the launcher's 8 x 64 stream, ``run("elsa")`` for 2 rounds
+    of 2 local steps on the default (batched) backend, each client step
+    clipped to a global norm of 1.  As phase 10, every ``run_clients``
+    call must launch exactly real members x steps x what a client step of
+    16 blocks implies; the losses must be finite."""
+    register_split_model("olmo-1b-full", _olmo_full)
+    fed_cfg = FedConfig(model="olmo-1b-full", layers=16, n_clients=4,
+                        n_edges=2, alpha=0.2, poisoned=(1,),
+                        total_examples=400, batch_size=8, seq_len=64,
+                        probe_q=8, local_warmup_steps=2, t_rounds=1,
+                        lr=5e-3, clip_norm=1.0)
+    base = _memory_base()
+    fed = Federation(fed_cfg, device="cuda")
+    cfg = fed.cfg
+    check(fed.backend == "batched" and fed.model.task == "causal-lm",
+          f"{fed.backend} {fed.model.task}")
+    check((cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.vocab_size)
+          == (2048, 16, 16, 50304), f"not full width: {cfg}")
+    hist, wall, counts, calls, (groups, div, trust) = _run_federation(
+        fed, rounds=2, steps=2)
+    peak = _peak_gib(base)
+    step_ms, call_ms = _round_walls(calls)
+    syncs = [len(c["syncs"]) for c in calls]
+    print(f"causal-LM federation (olmo-1b full width, f32, 4 clients, 2 "
+          f"edges): groups { {k: v for k, v in groups.items() if v} }, "
+          f"trust {np.round(trust, 3).tolist()}")
+    print(f"  history: accuracy {hist['accuracy']}, loss "
+          f"{[round(x, 4) for x in hist['loss']]}, delta "
+          f"{[f'{x:.3e}' for x in hist['delta']]}")
+    for c in calls:
+        print(f"  run_clients: {len(c['clients'])} clients x {c['steps']} "
+              f"steps, {c['buckets']} split buckets, {c['ms']:.1f} ms "
+              f"({c['client_step_ms']:.2f} ms a client step), host syncs "
+              f"{c['syncs']}")
+    print(f"  run {wall:.1f}s; rounds: {step_ms:.2f} ms a client step "
+          f"(8 x 64 tokens); launches in the run {counts}; peak memory "
+          f"{peak:.2f} GiB (above the {base / 2 ** 30:.2f} GiB held before)")
+    out = dict(groups={str(k): v for k, v in groups.items()},
+               trust=list(map(float, trust)), accuracy=hist["accuracy"],
+               loss=hist["loss"], delta=hist["delta"], run_s=wall,
+               step_ms=step_ms, step_ms_calls=call_ms, calls=calls,
+               syncs_per_call=syncs,
+               launches_per_step={k: v // (len(calls[-1]["clients"])
+                                           * calls[-1]["steps"])
+                                  for k, v in calls[-1]["launches"].items()},
+               launches=counts, peak_gib=peak, base_gib=base / 2 ** 30)
+    del fed
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def build_phase():
     """The four libraries, one nvcc each, started together."""
     t0 = time.time()
@@ -1948,10 +2303,19 @@ def main():
         step0 = step0_phase(training["losses"][0])
     with phase("9 training profile"):
         t_prof = train_profile_phase()
-    with phase("10 federation"), _recording_lora_calls(path_calls):
-        federation, fed_launches = federation_phase()
+    with phase("10 federation, batched"), _recording_lora_calls(path_calls):
+        fed, federation, fed_launches = federation_phase()
+    with phase("10r federation, reference backend"), \
+            _recording_lora_calls(path_calls):
+        fed_r, fed_ref, ref_launches = federation_reference_phase()
+    with phase("10c one step on both backends"):
+        cross = cross_backend_phase(fed, fed_r)
+    del fed, fed_r
+    torch.cuda.empty_cache()
     with phase("10b split-training parity"):
         s_parity = split_parity_phase()
+    with phase("12 causal-LM federation"), _recording_lora_calls(path_calls):
+        causal, causal_launches = causal_lm_federation_phase()
     with phase("11 every LoRA shape of the paths against plain version"):
         path_rows = path_shapes_phase(path_calls)
 
@@ -1965,7 +2329,9 @@ def main():
 
     def by_path(name):
         out = {"train": train_launches[name],
-               "federation": fed_launches[name]}
+               "federation": fed_launches[name],
+               "federation reference": ref_launches[name],
+               "causal-LM federation": causal_launches[name]}
         if name == "lora_matmul":
             out = {"serve": serve_launches, **out}
         return out
@@ -2025,8 +2391,12 @@ def main():
     flash.update(shape="B=16 S=128 H=12 Dh=64 float32 non-causal (bert-base)",
                  launches_by_path=by_path("flash_attention"),
                  launches_per_step={
-                     "federation client step":
+                     "federation client step, batched":
                          federation["launches_per_step"]["flash_attention"],
+                     "federation client step, reference":
+                         fed_ref["launches_per_step"]["flash_attention"],
+                     "causal-LM federation client step":
+                         causal["launches_per_step"]["flash_attention"],
                      "olmo-1b training step":
                          training["launches_per_step"]["flash_attention"]},
                  cases=[{k: r[k] for k in (
@@ -2045,7 +2415,10 @@ def main():
                    "profile": prof, "train_parity": t_parity,
                    "training": training, "step0_witness": step0,
                    "train_profile": t_prof, "lora_path_shapes": path_rows,
-                   "federation": federation, "split_parity": s_parity,
+                   "federation": federation,
+                   "federation_reference": fed_ref,
+                   "cross_backend_step": cross, "split_parity": s_parity,
+                   "causal_lm_federation": causal,
                    **record}, f, indent=1, default=str)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -4,14 +4,15 @@ channel -> coherence/trust-weighted cloud fusion.
 
   PYTHONPATH=src python examples/torch_elsa_federated_finetune.py \
       [--rounds 8] [--clients 10] [--method elsa] [--full] \
-      [--device cuda|cpu] [--backend reference]
+      [--device cuda|cpu] [--backend batched|reference] [--model llama3-8b]
 
 The flags of ``examples/elsa_federated_finetune.py`` (the JAX package's
 example), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-versions of the kernels).  The port runs the sequential
-``--backend reference`` loop; ``batched`` raises until the stacked-client
-engine is ported (ROADMAP.md, queue 1, item 3b), and so does a causal-LM
-``--model``.  The scalar history is written as JSON to
+versions of the kernels).  ``--backend batched`` (the default) runs each
+local round through the batched engine over the stacked clients,
+``--backend reference`` the sequential loop; ``--model`` takes any
+registered split model, the dense causal LMs (llama3-8b, olmo-1b, the
+qwen configs) included.  The scalar history is written as JSON to
 ``<out>/<method>_history.json`` (the JAX example's msgpack checkpoint
 format waits for ROADMAP.md, queue 5).
 """
@@ -37,7 +38,7 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--model", default="bert-base",
                     help="registered split-model name")
-    ap.add_argument("--backend", default="reference",
+    ap.add_argument("--backend", default="batched",
                     choices=["batched", "reference"])
     ap.add_argument("--aggregate", default="product",
                     choices=["product", "factor"],

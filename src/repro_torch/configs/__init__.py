@@ -7,11 +7,14 @@ the ROADMAP queue that brings it over.
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, InputShape, INPUT_SHAPES  # noqa: F401
-from repro_torch.configs import bert_base, llama3_8b, olmo_1b
+from repro_torch.configs import (bert_base, llama3_8b, olmo_1b, qwen1_5_4b,
+                                  qwen2_5_3b)
 
 REGISTRY = {
     "llama3-8b": llama3_8b.CONFIG,
+    "qwen2.5-3b": qwen2_5_3b.CONFIG,
     "olmo-1b": olmo_1b.CONFIG,
+    "qwen1.5-4b": qwen1_5_4b.CONFIG,
     # the paper's own model
     "bert-base": bert_base.CONFIG,
 }

@@ -7,15 +7,18 @@ FedAvg, and coherence/trust-weighted cloud fusion with the Eq. 16 stopping
 rule.  ``FedConfig.model`` names any architecture registered in
 :mod:`repro_torch.models.split_api`.
 
-The counterpart of the JAX package's ``repro/federation/simulation.py``
-with its ``backend="reference"`` loop: one client at a time, an eager
-autograd step per local step.  On a CUDA device every step runs the
-hand-written kernels (the LoRA projections, flash attention, and the
-channel's SS-OP, scatter and gather, forward and backward).  Not ported
-yet, and raising ``NotImplementedError`` that names the ROADMAP.md item:
-``backend="batched"`` (queue 1, item 3b), ``mesh=`` (queue 8),
-``run(runtime=)`` (queue 4), ``run(checkpoint=)``/``run(resume_from=)``
-and ``FedConfig(screen=True)`` (queue 5), ``run(population=)`` (queue 7).
+The counterpart of the JAX package's ``repro/federation/simulation.py``,
+with both of its backends: ``backend="batched"`` (the default) runs each
+local round through :class:`~repro_torch.federation.engine.BatchedEngine`
+over the cohort's stacked clients, with one host sync a round;
+``backend="reference"`` is the sequential loop, one client at a time, an
+eager autograd step and a host sync per local step.  On a CUDA device
+every step runs the hand-written kernels (the LoRA projections, flash
+attention, and the channel's SS-OP, scatter and gather, forward and
+backward).  Not ported yet, and raising ``NotImplementedError`` that
+names the ROADMAP.md item: ``mesh=`` (queue 8), ``run(runtime=)`` (queue
+4), ``run(checkpoint=)``/``run(resume_from=)`` and
+``FedConfig(screen=True)`` (queue 5), ``run(population=)`` (queue 7).
 
 Entry points take ``device`` and default to ``"cuda"``; the CPU runs only
 when a caller passes ``device="cpu"``.
@@ -44,18 +47,14 @@ from repro_torch.data.pipeline import CountingIterator, infinite_batches
 from repro_torch.data.probe import make_probe_set
 from repro_torch.data.synthetic import (SyntheticTaskConfig,
                                         make_federation_data, make_test_set)
-from repro_torch.federation.engine import is_client_map
+from repro_torch.federation.engine import (BatchedEngine, _not_ported,
+                                           is_client_map)
 from repro_torch.federation.topology import make_topology
 from repro_torch.models.params import init_tree
 from repro_torch.models.split_api import get_split_model
 from repro_torch.optim import (FedAdam, FedAMS, adapter_head_lr_tree,
                                clip_by_global_norm, fedprox_gradient)
 from repro_torch.optim.optimizers import tree_map
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"{item})")
 
 
 @dataclasses.dataclass
@@ -142,19 +141,18 @@ class Federation:
     {'elsa', 'elsa-fixed', 'elsa-nocluster', 'fedavg', 'fedavg-random',
     'fedprox', 'fedams', 'vanilla'}.
 
-    ``backend="reference"`` (the port's default) is the sequential eager
-    loop.  The weights are drawn on ``device`` from a ``torch.Generator``
-    seeded with ``FedConfig.seed``; everything else (data, probes,
-    topology, splits, sketch plan, SS-OP rotations) is drawn by numpy
-    exactly as the JAX package draws it."""
+    ``backend="batched"`` (the default, as in the JAX package) runs local
+    training through the batched engine; ``backend="reference"`` is the
+    sequential eager loop (the parity baseline).  The weights are drawn
+    on ``device`` from a ``torch.Generator`` seeded with
+    ``FedConfig.seed``; everything else (data, probes, topology, splits,
+    sketch plan, SS-OP rotations) is drawn by numpy exactly as the JAX
+    package draws it."""
 
     def __init__(self, fed: FedConfig = FedConfig(),
-                 backend: str = "reference", mesh=None, device="cuda"):
+                 backend: str = "batched", mesh=None, device="cuda"):
         if backend not in ("batched", "reference"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "batched":
-            raise _not_ported("backend='batched' (the stacked-client "
-                              "engine)", "queue 1, item 3b")
         if mesh is not None:
             raise _not_ported("mesh= (the multi-GPU engine)", "queue 8")
         self.backend = backend
@@ -203,6 +201,7 @@ class Federation:
         self.plan = make_plan(d, fed.sketch_y, z, seed=fed.seed + 11,
                               device=self.device)
         self._channels: Dict[int, Channel] = {}
+        self._engine: Optional[BatchedEngine] = None
 
         self.screening = ScreeningConfig(
             norm_k=fed.screen_norm_k, cos_min=fed.screen_cos_min,
@@ -211,6 +210,17 @@ class Federation:
             trim_frac=fed.screen_trim_frac)
         self.trust_ledger = TrustLedger(fed.n_clients,
                                         beta=fed.screen_trust_beta)
+
+    @property
+    def engine(self) -> BatchedEngine:
+        """The batched backend's round executor, built at first use."""
+        if self._engine is None:
+            self._engine = BatchedEngine(
+                self.model, self.frozen, lr=self.fed.lr,
+                batch_size=self.fed.batch_size,
+                head_lr=self.fed.head_lr or None,
+                clip_norm=self.fed.clip_norm, device=self.device)
+        return self._engine
 
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(self.device, torch.int64)
@@ -295,17 +305,42 @@ class Federation:
 
     def group_steps(self, clients, theta, n_steps: int, iters,
                     use_split=True, prox_anchor=None, per_client=None):
-        """Run one local round for a client group: ``client_steps`` for
-        each client in turn.  ``theta`` is one shared LoRA tree or a
-        ``{client: tree}`` map (``per_client``; by default sniffed with
+        """Run one local round for a client group on the active backend.
+        ``theta`` is one shared LoRA tree or a ``{client: tree}`` map
+        (``per_client``; by default sniffed with
         :func:`~repro_torch.federation.engine.is_client_map`).  Returns
-        ``{client: (lora, mean loss)}``."""
+        ``{client: (lora, mean loss)}``.  The batched backend runs the
+        group through the engine, its buckets stacked by split; the
+        reference backend runs ``client_steps`` for each client in
+        turn."""
         if per_client is None:
             per_client = is_client_map(theta)
-        return {n: self.client_steps(n, theta[n] if per_client else theta,
-                                     n_steps, iters[n], use_split=use_split,
-                                     prox_anchor=prox_anchor)
-                for n in clients}
+        if self.backend != "batched":
+            return {n: self.client_steps(n, theta[n] if per_client
+                                         else theta, n_steps, iters[n],
+                                         use_split=use_split,
+                                         prox_anchor=prox_anchor)
+                    for n in clients}
+        splits = {n: self.split_for(n, use_split) for n in clients}
+        # every missing channel derives from the same theta -> one probe
+        # forward shared across the clients (per-client thetas share it
+        # too when they are one object)
+        emb = None
+        shared = (theta if not per_client
+                  else (theta[clients[0]]
+                        if len({id(theta[n]) for n in clients}) == 1
+                        else None))
+        if self.fed.use_channel and shared is not None and \
+                any(n not in self._channels for n in clients):
+            emb = self._probe_embeddings(shared)
+        channels = {n: self.channel_for(n, theta[n] if per_client
+                                        else theta, emb=emb)
+                    for n in clients}
+        batches = {n: [next(iters[n]) for _ in range(n_steps)]
+                   for n in clients}
+        return self.engine.run_clients(theta, clients, splits, channels,
+                                       batches, prox_anchor=prox_anchor,
+                                       per_client_theta=per_client)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -318,21 +353,22 @@ class Federation:
     # ------------------------------------------------------------------
     def profile_clients(self):
         """Phase 1: warm up each client locally, fingerprint it on the
-        probes, score trust, cluster."""
+        probes, score trust, cluster.  The warm-up of all clients is one
+        ``group_steps`` round on the active backend (they share the
+        default split)."""
         fed = self.fed
         iters = {n: infinite_batches(self.data[n].tokens,
                                      self.data[n].labels, fed.batch_size,
                                      seed=fed.seed + n)
                  for n in range(fed.n_clients)}
-        fps, norms, warm_loras = [], [], {}
-        for n in range(fed.n_clients):
-            lora_n, _ = self.client_steps(n, self.lora0,
-                                          fed.local_warmup_steps,
-                                          iters[n], use_split=False)
-            warm_loras[n] = lora_n
-            emb = self._probe_embeddings(lora_n)
-            fps.append(fingerprint(emb))
-            norms.append(torch.linalg.vector_norm(emb, dim=-1).cpu().numpy())
+        clients = list(range(fed.n_clients))
+        res = self.group_steps(clients, self.lora0, fed.local_warmup_steps,
+                               iters, use_split=False)
+        warm_loras = {n: res[n][0] for n in clients}
+        embs = [self._probe_embeddings(warm_loras[n]) for n in clients]
+        fps = [fingerprint(embs[n]) for n in clients]
+        norms = [torch.linalg.vector_norm(embs[n], dim=-1).cpu().numpy()
+                 for n in clients]
         div = divergence_matrix(fps)
         trust = trust_scores(div, np.stack(norms))
         result = clus.cluster_clients(div, trust, self.topo.latency,

@@ -20,10 +20,10 @@ The counterpart of the JAX package's ``repro/models/split_api.py``:
   ``head_param_count`` / ``flops_per_token`` — the shape and 6ND cost
   facts.
 
-The port has the encoder adapter, :class:`BertSplitModel`.  The dense
-causal-LM adapter (``CausalLMSplitModel`` in the JAX package) waits for the
-next slice: its family adapter and its registry entries raise
-``NotImplementedError`` naming ROADMAP.md, queue 1, item 3b.
+Adapters: :class:`BertSplitModel` (the paper's encoder, classification
+readout at [CLS]) and :class:`CausalLMSplitModel` (any dense decoder-only
+LM of the port's registry, llama/qwen/olmo-style, with a next-token-CE
+task).
 """
 from __future__ import annotations
 
@@ -36,11 +36,10 @@ import torch
 from repro_torch.configs import REGISTRY as ARCH_REGISTRY, get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import bert as bert_mod
+from repro_torch.models import transformer
+from repro_torch.models.common import apply_norm
 from repro_torch.models.params import count_params
 from repro_torch.models.zoo import per_example_ce
-
-_CAUSAL_LM_TODO = ("the causal-LM split model (CausalLMSplitModel) is not "
-                   "ported yet (ROADMAP.md, queue 1, item 3b)")
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +199,77 @@ class BertSplitModel(SplitModel):
                      + count_params(lora["head"]))
 
 
+class CausalLMSplitModel(SplitModel):
+    """Dense decoder-only causal LM (llama/qwen/olmo-style configs).
+
+    The task head is the (frozen) vocab projection; the per-example loss
+    is mean next-token CE with padded-vocab masking, and the pooled
+    representation for fingerprints is the mean final hidden state.  MoE
+    and prefix-structured decoders are rejected: their layer stacks are
+    not uniform block slices."""
+
+    task = "causal-lm"
+
+    def __init__(self, cfg: ArchConfig):
+        if cfg.family != "dense" or cfg.moe is not None:
+            raise ValueError(
+                f"CausalLMSplitModel needs a dense non-MoE decoder config; "
+                f"got family={cfg.family!r} moe={cfg.moe is not None}")
+        super().__init__(cfg)
+
+    def specs(self, num_classes: int = 2):
+        del num_classes   # LM head is the vocab projection, not a classifier
+        return transformer.lm_specs(self.cfg)
+
+    def embed(self, frozen, tokens):
+        return frozen["embed"][tokens].to(self.cfg.adtype())
+
+    def run_blocks(self, frozen, lora, x, lo: int, hi: int,
+                   mask_valid=None):
+        x = transformer.run_block_range(self.cfg, frozen, lora, x, lo, hi)
+        if mask_valid is not None:
+            x = x * mask_valid[..., None].to(x.dtype)
+        return x
+
+    def head(self, frozen, lora, x):
+        x = apply_norm(self.cfg.norm, frozen["final_norm"], x)
+        head = frozen.get("head", None)
+        logits = (x @ frozen["embed"].T.to(x.dtype) if head is None
+                  else x @ head.to(x.dtype))
+        return x.mean(dim=1), logits
+
+    def per_example_loss(self, logits, batch):
+        tokens = batch["tokens"]
+        lg = logits[:, :-1, :].to(torch.promote_types(logits.dtype,
+                                                      torch.float32))
+        vp, V = lg.shape[-1], self.cfg.vocab_size
+        if vp > V:
+            lg = lg + torch.where(
+                torch.arange(vp, device=lg.device) < V, 0.0, -1e30
+            ).to(lg.dtype)
+        targets = tokens[:, 1:].to(torch.int64)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+        return torch.mean(lse - gold, dim=-1)
+
+    def accuracy(self, logits, tokens, labels) -> float:
+        del labels                       # next-token top-1, not class labels
+        # argmax on the device: (B, S) ints cross, not (B, S, vocab) floats
+        pred = torch.argmax(logits[:, :-1, :self.cfg.vocab_size],
+                            -1).cpu().numpy()
+        targets = np.asarray(tokens)[:, 1:]
+        return float((pred == targets).mean())
+
+    def head_param_count(self, num_classes: int = 2) -> float:
+        frozen = self.specs()["frozen"]
+        total = float(count_params(frozen["final_norm"]))
+        if "head" in frozen:
+            total += float(count_params(frozen["head"]))
+        else:                            # tied embeddings: output reuses embed
+            total += float(np.prod(frozen["embed"].shape))
+        return total
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -224,12 +294,8 @@ def _adapter_for(cfg: ArchConfig):
     return adapter
 
 
-def _dense_adapter(cfg: ArchConfig) -> "SplitModel":
-    raise NotImplementedError(f"{cfg.name}: {_CAUSAL_LM_TODO}")
-
-
 register_family_adapter("encoder", BertSplitModel)
-register_family_adapter("dense", _dense_adapter)
+register_family_adapter("dense", CausalLMSplitModel)
 
 
 @lru_cache(maxsize=None)
@@ -303,7 +369,7 @@ def get_split_model(name: str, *, num_layers: Optional[int] = None,
 
 
 # every ported config with a family adapter is registered, as in the JAX
-# package; the dense ones resolve to the adapter that raises until item 3b
+# package
 for _arch, _cfg in ARCH_REGISTRY.items():
     if _cfg.family == "encoder" or (_cfg.family == "dense"
                                     and _cfg.moe is None):

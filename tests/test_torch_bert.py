@@ -30,7 +30,8 @@ from repro_torch.core.sketch import make_plan
 from repro_torch.core.ssop import SSOP
 from repro_torch.models import bert
 from repro_torch.models.split_api import (BertSplitModel, get_split_model,
-                                          register_split_model)
+                                          register_split_model,
+                                          split_model_for)
 
 B, S, LAYERS, C = 3, 24, 4, 4
 SPLIT = (1, 1, 2)
@@ -271,8 +272,9 @@ def test_registry_takes_a_factory_and_rejects_what_is_not_ported():
     assert get_split_model("bert-base", pooling="mean").pooling == "mean"
     with pytest.raises(KeyError, match="unknown split model"):
         get_split_model("bert-huge")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3b"):
-        get_split_model("olmo-1b")
+    assert get_split_model("olmo-1b").task == "causal-lm"
+    with pytest.raises(NotImplementedError, match="no SplitModel adapter"):
+        split_model_for(get_split_model("bert-base").cfg.with_(family="ssm"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],

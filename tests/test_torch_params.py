@@ -34,7 +34,7 @@ def test_config_matches_jax_field_by_field(reduced):
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen2.5-3b")
+        get_config("grok-1-314b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.get_model(CFG.with_(family="moe"))
 
