@@ -3,8 +3,10 @@
 serving path (full llama3-8b), LoRA fine-tuning through ELSA's split
 channel (full-width olmo-1b, ``launch/train.py --full --elsa``), the ELSA
 federation of full-width bert-base (``Federation(...).run("elsa")`` on its
-default, batched backend and on the reference backend), and the
-federation of a dense decoder (full-width olmo-1b).
+default, batched backend and on the reference backend), the same
+federation on the event-driven edge runtime (``run(...,
+runtime=RuntimeConfig(policy=...))``), and the federation of a dense
+decoder (full-width olmo-1b).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --channel-times-of CHECKOUT
@@ -63,7 +65,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 9. where a training step's time goes: ``torch.profiler`` over one step, and
    what building the channel each step costs;
 10. the federation: full-width bert-base (12 layers, f32, random weights
-   from a seed) registered as ``"bert-base-full"``, 8 clients on 2 edges,
+   from a seed) registered as ``"bert-base-full"``, 8 clients on 2 edges
+   (a quarter of them constrained devices),
    ``run("elsa")`` for 2 rounds of 4 local steps on the default (batched)
    backend; the losses must be finite and each ``run_clients`` call must
    launch each kernel real members x steps x what a client step's split
@@ -74,6 +77,16 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 10c. one local step at the training lr on both backends, from the same
    weights with the same batches: losses to 1e-6 relative, each updated
    LoRA leaf to 1e-5 of its scale;
+13. the event runtime: phase 10's federation under ``RuntimeConfig(policy=
+   "sync")``, whose history must be phase 10's bit for bit with a strictly
+   increasing simulated clock, then ``"deadline"`` and ``"async"`` under
+   a churn trace and a fault trace (crashes, drops, dups, sign-flipped and
+   scaled updates): the event trace must be consistent (per client, each
+   arrival or crash follows a dispatch of it; a cloud aggregation per
+   round), the losses finite, and every ``run_clients`` call must launch
+   phase 10's counts and make one host sync; each policy's calls, cohort
+   size, wall a client step, simulated end, trace summary and peak memory
+   are reported;
 10b. split-training parity: one ``split_loss`` gradient of bert-base at
    full width (f32, 4 layers) through the channel, kernel path against
    plain path, each block against its own f32-vs-f64 floor;
@@ -81,7 +94,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    registered as ``"olmo-1b-full"``, 4 clients on 2 edges, the launcher's
    8 x 64 stream, 2 rounds of 2 local steps on the default backend, with
    phase 10's launch check (16 blocks) and finite losses;
-11. every LoRA shape that phases 5, 8, 10, 10r and 12 launched (recorded
+11. every LoRA shape that phases 5, 8, 10, 10r, 13 and 12 launched (recorded
    while they ran, with their pointers' alignment) against the plain
    version at phase 3's tolerances, so every kernel instantiation a path
    ran is held.
@@ -139,6 +152,9 @@ from repro_torch.models.split_api import (BertSplitModel,  # noqa: E402
 from repro_torch.models.params import init_tree  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.federation.topology import (make_churn_trace,  # noqa: E402
+                                             make_fault_trace)
+from repro_torch.runtime import RuntimeConfig  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -1670,13 +1686,16 @@ def _bert_fed_config():
     # clip_norm: at full width the split model's gradient grows ~10x per
     # block towards the input (LoRA q_b's norm 8e10 at block 0 at the
     # init), so unclipped steps at lr 2e-2 reach NaN by the third warm-up
-    # step; the JAX package's convergence stack clips for this reason
+    # step; the JAX package's convergence stack clips for this reason.
+    # constrained_frac: two of the 8 devices throttled (compute and uplink),
+    # the paper's heterogeneous setup, which gives phase 13's deadline
+    # policy its stragglers
     register_split_model("bert-base-full", _bert_full)
     return FedConfig(model="bert-base-full", layers=12, n_clients=8,
                      n_edges=2, poisoned=(3,), total_examples=1600,
                      batch_size=16, seq_len=128, probe_q=32,
                      local_warmup_steps=4, t_rounds=1, lr=2e-2,
-                     clip_norm=1.0)
+                     clip_norm=1.0, constrained_frac=0.25)
 
 
 def _syncs_of(fn):
@@ -1868,8 +1887,10 @@ def federation_phase():
     out = dict(backend=fed.backend,
                groups={str(k): v for k, v in groups.items()},
                excluded=excluded, trust=list(map(float, trust)),
-               accuracy=hist["accuracy"], loss=hist["loss"],
-               delta=hist["delta"], run_s=wall, step_ms=step_ms,
+               round=hist["round"], accuracy=hist["accuracy"],
+               loss=hist["loss"], delta=hist["delta"],
+               client_losses=hist["client_losses"], run_s=wall,
+               step_ms=step_ms,
                step_ms_calls=call_ms, calls=calls, syncs_per_call=syncs,
                launches_per_step={k: v // (len(calls[-1]["clients"])
                                            * calls[-1]["steps"])
@@ -2061,6 +2082,126 @@ def cross_backend_phase(fed, fed_r):
                 lr=fed.fed.lr, loss_rel_err=loss_err,
                 leaf_rel_err=leaf_err, bit_equal=bool(bit_equal),
                 channels_equal=bool(channels_equal))
+
+
+# ---------------------------------------------------------------------------
+# 13. the event runtime
+# ---------------------------------------------------------------------------
+
+def _trace_consistent(trace, n_clients, rounds_run):
+    """The event trace's bookkeeping: per client, in the order the
+    scheduler logged them, each arrival or crash follows a dispatch of that
+    client no later in simulated time, so arrivals plus crashes never
+    outnumber dispatches; one cloud aggregation per round run."""
+    sent, done, last = [0] * n_clients, [0] * n_clients, [None] * n_clients
+    for t, kind, client, _, _ in trace.records:
+        if kind == "dispatch":
+            sent[client] += 1
+            last[client] = t
+        elif kind in ("arrival", "crash"):
+            done[client] += 1
+            check(done[client] <= sent[client] and last[client] is not None
+                  and last[client] <= t,
+                  f"client {client}: {kind} at {t} without a dispatch before "
+                  f"it ({done[client]} done, {sent[client]} sent)")
+    check(trace.count("cloud_agg") == rounds_run,
+          f"{trace.count('cloud_agg')} cloud aggregations in {rounds_run} "
+          f"rounds")
+    return sent, done
+
+
+def runtime_phase(fed, phase10, rounds=2, steps=4):
+    """Phase 10's federation on the event-driven edge runtime:
+    ``fed.run("elsa", runtime=RuntimeConfig(policy=p))`` for 2 rounds of 4
+    local steps.  ``sync`` with no churn must reproduce phase 10's history
+    bit for bit (round, accuracy, loss, delta, client losses) with a
+    strictly increasing simulated clock.  ``deadline`` and ``async`` run
+    under the JAX package's churn trace (``tests/test_runtime.py``'s
+    ``_churny_config``) and a fault trace over half the clients (crash,
+    drop, dup and corrupt at 0.1 each; sign-flipped and scaled updates).
+    Every ``run_clients`` call must launch each kernel real members x steps
+    x a client step's count and make one host sync; the event trace must
+    be consistent and every loss finite.  The kernels' counts are zeroed
+    just before each run and read just after it."""
+    n = fed.fed.n_clients
+    churn = make_churn_trace(n, 10_000.0, mean_on_s=40.0, mean_off_s=15.0,
+                             churn_frac=0.5, seed=2)
+    faults = make_fault_trace(n, faulty_frac=0.5, crash_rate=0.1,
+                              drop_rate=0.1, dup_rate=0.1, corrupt_rate=0.1,
+                              corrupt_modes=("signflip", "scale"), seed=3)
+    per_step = _per_step(fed.cfg.num_layers, remat=False)
+    out, launches = {}, {k: 0 for k in _counts()}
+    for policy, kw in (("sync", {}),
+                       ("deadline", dict(churn=churn, faults=faults)),
+                       ("async", dict(churn=churn, faults=faults))):
+        base = _memory_base()
+        calls = []
+        run = _count_run_clients(fed.engine, per_step, calls)
+        _zero_counts()                               # the main path starts
+        t0 = time.time()
+        try:
+            hist = fed.run("elsa", global_rounds=rounds,
+                           steps_per_round=steps,
+                           runtime=RuntimeConfig(policy=policy, **kw))
+        finally:
+            fed.engine.run_clients = run
+        wall = time.time() - t0
+        counts = _counts()                           # the main path ends
+        peak = _peak_gib(base)
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        trace = hist["trace"]
+        losses = [l for ls in hist["client_losses"].values() for l in ls]
+        check(hist["policy"] == policy and len(hist["round"]) >= 1,
+              f"{policy}: history {hist['round']}")
+        check(len(losses) > 0 and all(np.isfinite(losses))
+              and all(np.isfinite(hist["loss"])),
+              f"{policy}: losses {hist['loss']}")
+        sent, done = _trace_consistent(trace, n, len(hist["round"]))
+        syncs = [len(c["syncs"]) for c in calls]
+        check(all(x == 1 for x in syncs),
+              f"{policy}: host syncs a run_clients call {syncs}: "
+              f"{[c['syncs'] for c in calls]}")
+        warm = calls[0]
+        check(len(warm["clients"]) * warm["steps"]
+              == n * fed.fed.local_warmup_steps, f"warm-up call {warm}")
+        rounds_calls = calls[1:]
+        cohort = [len(c["clients"]) for c in rounds_calls]
+        step_ms = sum(c["ms"] for c in rounds_calls) / sum(
+            len(c["clients"]) * c["steps"] for c in rounds_calls)
+        if policy == "sync":
+            for key in ("round", "accuracy", "loss", "delta"):
+                check(hist[key] == phase10[key],
+                      f"sync: {key} {hist[key]} is not phase 10's "
+                      f"{phase10[key]}")
+            check(hist["client_losses"] == phase10["client_losses"],
+                  "sync: the client losses are not phase 10's")
+            t = hist["time"]
+            check(all(b > a for a, b in zip(t, t[1:])), f"sync: time {t}")
+        print(f"runtime {policy}: rounds {hist['round']}, simulated time "
+              f"{[round(x, 3) for x in hist['time']]} s (trace ends at "
+              f"{trace.end_time():.3f} s), accuracy {hist['accuracy']}, "
+              f"loss {[round(x, 4) for x in hist['loss']]}, delta "
+              f"{[f'{x:.3e}' for x in hist['delta']]}")
+        print(f"  trace {trace.summary()}; dispatches a client {sent}, "
+              f"arrivals and crashes {done}")
+        print(f"  {len(rounds_calls)} run_clients calls after the warm-up, "
+              f"cohorts {cohort} (mean {statistics.mean(cohort):.2f}), "
+              f"{step_ms:.2f} ms a client step (calls "
+              f"{[round(c['client_step_ms'], 1) for c in rounds_calls]}); "
+              f"host syncs a call {syncs}; run {wall:.1f}s; launches "
+              f"{counts}; peak memory {peak:.2f} GiB above the "
+              f"{base / 2 ** 30:.2f} GiB held before")
+        out[policy] = dict(
+            round=hist["round"], time=hist["time"],
+            accuracy=hist["accuracy"], loss=hist["loss"],
+            delta=hist["delta"], trace_summary=trace.summary(),
+            trace_end_s=trace.end_time(), dispatches=sent,
+            arrivals_and_crashes=done, calls=calls,
+            calls_after_warmup=len(rounds_calls), cohorts=cohort,
+            mean_cohort=statistics.mean(cohort), step_ms=step_ms,
+            syncs_per_call=syncs, run_s=wall, launches=counts,
+            peak_gib=peak, base_gib=base / 2 ** 30)
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2310,7 +2451,11 @@ def main():
         fed_r, fed_ref, ref_launches = federation_reference_phase()
     with phase("10c one step on both backends"):
         cross = cross_backend_phase(fed, fed_r)
-    del fed, fed_r
+    del fed_r
+    torch.cuda.empty_cache()
+    with phase("13 the event runtime"), _recording_lora_calls(path_calls):
+        runtime, runtime_launches = runtime_phase(fed, federation)
+    del fed
     torch.cuda.empty_cache()
     with phase("10b split-training parity"):
         s_parity = split_parity_phase()
@@ -2331,6 +2476,7 @@ def main():
         out = {"train": train_launches[name],
                "federation": fed_launches[name],
                "federation reference": ref_launches[name],
+               "runtime": runtime_launches[name],
                "causal-LM federation": causal_launches[name]}
         if name == "lora_matmul":
             out = {"serve": serve_launches, **out}
@@ -2417,7 +2563,8 @@ def main():
                    "train_profile": t_prof, "lora_path_shapes": path_rows,
                    "federation": federation,
                    "federation_reference": fed_ref,
-                   "cross_backend_step": cross, "split_parity": s_parity,
+                   "cross_backend_step": cross, "runtime": runtime,
+                   "split_parity": s_parity,
                    "causal_lm_federation": causal,
                    **record}, f, indent=1, default=str)
     print(json.dumps(record))

@@ -133,6 +133,14 @@ def aggregate_adapters(trees: Sequence, weights: Sequence[float],
     raise ValueError(f"unknown aggregation mode {mode!r}")
 
 
+def mix_adapters(theta, update, w: float, mode: str = "factor"):
+    """Asynchronous edge fold ``θ ← (1-w)·θ + w·update`` in the chosen
+    space (the async scheduler's staleness-weighted mixing)."""
+    if mode == "product":
+        return product_fedavg([theta, update], [1.0 - w, w])
+    return tree_map(lambda a, b: (1.0 - w) * a + w * b, theta, update)
+
+
 def edge_weight(mean_pairwise_kld: float, mean_trust: float) -> float:
     """Eq. 14: alpha_k = (1 / (1 + R̄_k)) * w̄_k^trust."""
     return (1.0 / (1.0 + mean_pairwise_kld)) * mean_trust

@@ -15,10 +15,13 @@ over the cohort's stacked clients, with one host sync a round;
 eager autograd step and a host sync per local step.  On a CUDA device
 every step runs the hand-written kernels (the LoRA projections, flash
 attention, and the channel's SS-OP, scatter and gather, forward and
-backward).  Not ported yet, and raising ``NotImplementedError`` that
-names the ROADMAP.md item: ``mesh=`` (queue 8), ``run(runtime=)`` (queue
-4), ``run(checkpoint=)``/``run(resume_from=)`` and
-``FedConfig(screen=True)`` (queue 5), ``run(population=)`` (queue 7).
+backward).  ``run(runtime=RuntimeConfig(...))`` hands the run to the
+event-driven :class:`~repro_torch.runtime.EdgeRuntime` (sync, deadline
+and async policies over a simulated clock, with churn and fault traces).
+Not ported yet, and raising ``NotImplementedError`` that names the
+ROADMAP.md item: ``mesh=`` (queue 8), ``run(checkpoint=)``/
+``run(resume_from=)`` and ``FedConfig(screen=True)`` (queue 5),
+``run(population=)`` (queue 7).
 
 Entry points take ``device`` and default to ``"cuda"``; the CPU runs only
 when a caller passes ``device="cpu"``.
@@ -210,6 +213,9 @@ class Federation:
             trim_frac=fed.screen_trim_frac)
         self.trust_ledger = TrustLedger(fed.n_clients,
                                         beta=fed.screen_trust_beta)
+        # a registry-backed population would be bound here by
+        # run(population=), which is not ported (queue 7)
+        self._population = None
 
     @property
     def engine(self) -> BatchedEngine:
@@ -248,6 +254,14 @@ class Federation:
     def client_weight(self, client: int) -> int:
         """FedAvg weight: the client's example count."""
         return len(self.data[client].tokens)
+
+    def _bind_population(self, population):
+        """Attach a registry-backed population for this run: ``None``
+        detaches (the only path ported); any other value raises."""
+        if population is not None:
+            raise _not_ported("run(population=): populations", "queue 7")
+        self._population = None
+        return None
 
     # ------------------------------------------------------------------
     def channel_for(self, client: int, lora, emb=None) -> Channel:
@@ -425,6 +439,13 @@ class Federation:
         raises), so this is ``aggregate_adapters(trees, weights)``."""
         return agg.aggregate_adapters(trees, weights, mode=self.fed.aggregate)
 
+    def screen_cohort(self, clients, trees, weights, base):
+        """Screening without aggregation, for schedulers that combine
+        arrivals with an anchor term (the deadline policy).  Screening is
+        off (``FedConfig(screen=True)`` raises), so every update survives
+        with its weight."""
+        return list(trees), list(weights)
+
     def fusion_trust(self, trust, members) -> float:
         """Mean clustering-time trust of an edge's members (Eq. 14)."""
         return float(np.mean(trust[list(members)]))
@@ -434,12 +455,24 @@ class Federation:
             steps_per_round: int = 4, eval_every: int = 1,
             log: bool = False, runtime=None, checkpoint=None,
             resume_from: Optional[str] = None, population=None) -> Dict:
-        """Run the federation's round-synchronous loop; returns the history
-        ``{"round", "accuracy", "loss", "delta", "final_accuracy",
-        "client_losses"}`` and leaves the final LoRA in ``last_theta``."""
-        for name, value, item in (("run(runtime=): the event runtime",
-                                   runtime, "queue 4"),
-                                  ("run(checkpoint=): checkpoints",
+        """Run the federation; returns the history ``{"round",
+        "accuracy", "loss", "delta", "final_accuracy", "client_losses"}``
+        and leaves the final LoRA in ``last_theta``.
+
+        ``runtime=None`` runs the round-synchronous loop (no wall-clock
+        model).  A :class:`repro_torch.runtime.RuntimeConfig` hands the run
+        to the event-driven :class:`repro_torch.runtime.EdgeRuntime`: the
+        history gains a simulated ``time`` axis, the ``policy`` and an
+        event ``trace``; with ``policy="sync"`` and no churn or faults the
+        training math, and so the history, is this loop's."""
+        if runtime is not None:
+            from repro_torch.runtime import EdgeRuntime
+            return EdgeRuntime(self, runtime).run(
+                method, global_rounds=global_rounds,
+                steps_per_round=steps_per_round, eval_every=eval_every,
+                log=log, checkpoint=checkpoint, resume_from=resume_from,
+                population=population)
+        for name, value, item in (("run(checkpoint=): checkpoints",
                                    checkpoint, "queue 5"),
                                   ("run(resume_from=): resuming",
                                    resume_from, "queue 5"),

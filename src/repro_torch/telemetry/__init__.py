@@ -3,11 +3,15 @@ check each while disabled.
 
 The subset of the JAX package's ``repro/telemetry`` that the port's paths
 use: :mod:`repro_torch.serving` (``serving.requests``, ``serving.tokens``,
-``serving.adapter_swaps``, ``serving.request_s``) and the federation's
-round loop (:func:`span` around its phases, :func:`end_round`).  While
-enabled, a span's wall time goes to the histogram ``span_s{span=...}`` and
-each round end counts in ``rounds``; the JAX package's span records,
-gauges and exports wait for ROADMAP.md, queue 6::
+``serving.adapter_swaps``, ``serving.request_s``), the federation's
+round loop (:func:`span` around its phases, :func:`end_round`) and the
+event runtime (``runtime.events{kind=...}``, the ``runtime.sim.*``
+seconds and wire bytes, ``runtime.stragglers``, and each round's
+simulated end, ``end_round(..., sim_time_s=)``).  While enabled, a span's
+wall time goes to the histogram ``span_s{span=...}``, each round end
+counts in ``rounds`` and its simulated end is kept by round in
+``sim_time_s``; the JAX package's span records, gauges and exports wait
+for ROADMAP.md, queue 6::
 
     from repro_torch import telemetry as tm
 
@@ -18,7 +22,6 @@ gauges and exports wait for ROADMAP.md, queue 6::
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -67,27 +70,47 @@ def observe(name: str, value: float,
         t.observe(name, value, buckets=buckets, **labels)
 
 
-@contextlib.contextmanager
-def _timed_span(t: Telemetry, name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        t.observe("span_s", time.perf_counter() - t0, span=name)
+class _Span:
+    """One span around a phase: while telemetry is enabled, its wall time
+    goes to ``span_s{span=name}`` on exit.  Its attributes (round, edge,
+    ...), given here or through :meth:`set` while it is open, are
+    accepted for the JAX package's signature and not recorded."""
+
+    __slots__ = ("_tel", "name", "_t0")
+
+    def __init__(self, tel: Optional[Telemetry], name: str):
+        self._tel = tel
+        self.name = name
+
+    def set(self, **attrs: Any) -> None:
+        pass
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._tel is not None:
+            self._tel.observe("span_s", time.perf_counter() - self._t0,
+                              span=self.name)
+        return False
 
 
-def span(name: str, **attrs: Any):
-    """A context manager around one phase; a no-op while disabled.  The
-    attributes (round, edge, ...) are accepted for the JAX package's
-    signature and not recorded."""
+_NULL_SPAN = _Span(None, "")
+
+
+def span(name: str, **attrs: Any) -> _Span:
+    """A context manager around one phase; a no-op while disabled."""
     t = _active
-    return _timed_span(t, name) if t is not None else contextlib.nullcontext()
+    return _Span(t, name) if t is not None else _NULL_SPAN
 
 
-def end_round(round_idx: int) -> None:
+def end_round(round_idx: int, sim_time_s: Optional[float] = None) -> None:
+    """Close one round; the event runtime passes the simulated clock at
+    the round's end."""
     t = _active
     if t is not None:
-        t.inc("rounds")
+        t.end_round(round_idx, sim_time_s=sim_time_s)
 
 
 def summary() -> Optional[Dict[str, Any]]:

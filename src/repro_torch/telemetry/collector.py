@@ -1,7 +1,8 @@
-"""Process-wide metrics registry: counters and fixed-bucket histograms.
+"""Process-wide metrics registry: counters, fixed-bucket histograms and
+each round's simulated end.
 
 The part of the JAX package's ``repro/telemetry/collector.py`` that the
-serving engine uses, copied so that the port imports nothing of ``repro``.
+port's paths use, copied so that the port imports nothing of ``repro``.
 Metric identity is ``name{label=value,...}`` with labels sorted.
 Recording is host-side bookkeeping only and never touches device tensors.
 """
@@ -63,6 +64,7 @@ class Telemetry:
         self.meta = dict(meta or {})
         self.counters: Dict[str, float] = {}
         self.histograms: Dict[str, Histogram] = {}
+        self.sim_time_s: Dict[int, float] = {}   # round -> simulated end
 
     def inc(self, name: str, value: float = 1.0, **labels: Any) -> None:
         k = flat_key(name, labels)
@@ -78,12 +80,22 @@ class Telemetry:
                                                or DEFAULT_TIME_BUCKETS)
         h.observe(value)
 
+    def end_round(self, round_idx: int,
+                  sim_time_s: Optional[float] = None) -> None:
+        """Count one closed round; keep its simulated end, when the event
+        runtime gives one."""
+        self.inc("rounds")
+        if sim_time_s is not None:
+            self.sim_time_s[int(round_idx)] = float(sim_time_s)
+
     def counter(self, name: str, **labels: Any) -> float:
         return self.counters.get(flat_key(name, labels), 0.0)
 
     def summary(self) -> Dict[str, Any]:
-        """Cumulative counters and histogram states."""
+        """Cumulative counters, histogram states and simulated round
+        ends."""
         return {"meta": dict(self.meta),
                 "counters": dict(self.counters),
                 "histograms": {k: h.state()
-                               for k, h in self.histograms.items()}}
+                               for k, h in self.histograms.items()},
+                "sim_time_s": dict(self.sim_time_s)}

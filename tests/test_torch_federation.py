@@ -142,10 +142,19 @@ def test_what_is_not_ported_raises():
     assert Federation(FedConfig(model="llama3-8b", **kw),
                       device="cpu").model.task == "causal-lm"
     fed = Federation(FedConfig(**kw), device="cpu")
-    for opt, item in (("runtime", "queue 4"), ("checkpoint", "queue 5"),
-                      ("resume_from", "queue 5"), ("population", "queue 7")):
+    for opt, item in (("checkpoint", "queue 5"), ("resume_from", "queue 5"),
+                      ("population", "queue 7")):
         with pytest.raises(NotImplementedError, match=item):
             fed.run("elsa", global_rounds=1, **{opt: object()})
+    # the event runtime is ported; its sync policy's checkpoints are not,
+    # and populations are not under any policy
+    from repro_torch.runtime import RuntimeConfig
+    with pytest.raises(NotImplementedError, match="queue 5"):
+        fed.run("elsa", global_rounds=1, runtime=RuntimeConfig("sync"),
+                checkpoint=object())
+    with pytest.raises(NotImplementedError, match="queue 7"):
+        fed.run("elsa", global_rounds=1, runtime=RuntimeConfig("sync"),
+                population=object())
     with pytest.raises(ValueError, match="backend"):
         Federation(FedConfig(**kw), backend="eager", device="cpu")
 

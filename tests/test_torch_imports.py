@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``, and its
-entry points run on the card unless the caller asks for the CPU."""
+``chip_smoke.py``, nor the port's examples ``examples/torch_*.py``)
+imports ``jax`` or the JAX package ``repro``, and its entry points run on
+the card unless the caller asks for the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -17,7 +18,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _sources():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) >= 2
+    return files + examples + [ROOT / "chip_smoke.py"]
 
 
 def _imported(tree):
