@@ -6,7 +6,8 @@ federation of full-width bert-base (``Federation(...).run("elsa")`` on its
 default, batched backend and on the reference backend), the same
 federation on the event-driven edge runtime (``run(...,
 runtime=RuntimeConfig(policy=...))``), and the federation of a dense
-decoder (full-width olmo-1b).
+decoder (full-width olmo-1b), then the federation with update screening
+(``FedConfig(screen=True)``) and with full-state checkpoints and resumes.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --channel-times-of CHECKOUT
@@ -58,6 +59,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 8. training: the launcher (``launch.train._main``) on full olmo-1b (16
    layers, bf16, ``--elsa``) for 20 steps of its batch stream; the loss must
    fall and each kernel's launches per step must be what the path implies;
+   its ``--ckpt`` file, read back with ``restore_state``, must hold the
+   trained LoRA tree bitwise;
 8b. the step-0 witness: phase 8's first forward (every LoRA B zero) on
    the kernel path, with the decode kernels forced, with the plain LoRA
    projection and on the plain path, each loss and logits against the
@@ -87,6 +90,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    phase 10's counts and make one host sync; each policy's calls, cohort
    size, wall a client step, simulated end, trace summary and peak memory
    are reported;
+14. update screening: phase 10's federation with ``screen=True``, on the
+   plain loop, the sync runtime under a NaN fault trace and the deadline
+   and async runtimes under phase 13's traces; every screening pass's
+   statistics are held against a float64 recomputation on the CPU (masks
+   equal, norms and cosines to 1e-5, verdicts equal away from a
+   threshold), every NaN update must be judged nonfinite and theta stay
+   finite; verdicts, fallbacks, the trust EMA, the time and host syncs a
+   pass and the wall a client step are reported;
+15. checkpoints: phase 10's federation with a checkpoint a round (its
+   history must be phase 10's bit for bit), then a new ``Federation``
+   resumed from round 0 (history and final theta bit for bit), the same
+   on the sync runtime with phase 14's screening and NaN trace (event
+   trace and trust ledger too); deadline and async refuse ``checkpoint=``;
+   the files' bytes and the save and restore times are reported;
 10b. split-training parity: one ``split_loss`` gradient of bert-base at
    full width (f32, 4 layers) through the channel, kernel path against
    plain path, each block against its own f32-vs-f64 floor;
@@ -94,10 +111,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    registered as ``"olmo-1b-full"``, 4 clients on 2 edges, the launcher's
    8 x 64 stream, 2 rounds of 2 local steps on the default backend, with
    phase 10's launch check (16 blocks) and finite losses;
-11. every LoRA shape that phases 5, 8, 10, 10r, 13 and 12 launched (recorded
-   while they ran, with their pointers' alignment) against the plain
-   version at phase 3's tolerances, so every kernel instantiation a path
-   ran is held.
+11. every LoRA shape that phases 5, 8, 10, 10r, 13, 14, 15 and 12
+   launched (recorded while they ran, with their pointers' alignment)
+   against the plain version at phase 3's tolerances, so every kernel
+   instantiation a path ran is held.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -107,6 +124,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -1495,14 +1513,25 @@ def train_phase(steps=20):
     """``python -m repro_torch.launch.train --arch olmo-1b --full --elsa``
     for ``steps`` steps of its batch stream, each step logged (so each ends
     in a device sync and has its own host-clock time)."""
+    from repro_torch.checkpoint import restore_state, tree_equal
     cfg = get_config("olmo-1b")
+    ckpt = os.path.join(OUT_DIR, "train_lora.msgpack")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()                                   # the main path starts
     out = train._main(["--arch", "olmo-1b", "--full", "--elsa", "--steps",
-                       str(steps), "--log-every", "1", "--device", "cuda"])
+                       str(steps), "--log-every", "1", "--device", "cuda",
+                       "--ckpt", ckpt])
     counts = _counts()                               # the main path ends
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.time()
+    state = restore_state(ckpt)
+    restore_s = time.time() - t0
+    check(state["step"] == steps and tree_equal(state["params"],
+                                                {"lora": out["lora"]}),
+          "--ckpt: the restored LoRA tree is not the trained one bitwise")
+    ckpt_bytes = os.path.getsize(ckpt)
+    os.unlink(ckpt)
     losses = [l for _, l in out["losses"]]
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"losses {losses}")
@@ -1520,7 +1549,10 @@ def train_phase(steps=20):
           f"{out['step_s'][0] * 1e3:.1f} ms) -> {tokens / step_s:.0f} "
           f"tokens/s; peak memory {peak:.2f} GiB; launches per step "
           f"{ {k: v // steps for k, v in counts.items()} }")
+    print(f"  --ckpt: {ckpt_bytes} bytes, restored in {restore_s:.3f}s, "
+          f"every LoRA leaf bitwise the trained tree's")
     return dict(steps=steps, losses=losses, step_ms=step_s * 1e3,
+                ckpt_bytes=ckpt_bytes, ckpt_restore_s=restore_s,
                 first_step_ms=out["step_s"][0] * 1e3,
                 tokens_per_s=tokens / step_s, peak_gib=peak,
                 launches=counts,
@@ -1780,23 +1812,40 @@ def _record_assign(fed, assigned):
     fed._assign_groups = recorded
 
 
-def _run_federation(fed, rounds, steps):
-    """The main path: ``fed.run("elsa")`` with every ``run_clients`` call
-    counted, the kernels' counts zeroed just before and read just after.
-    Returns (history, wall s, counts, calls, assigned groups)."""
-    per_step = _per_step(fed.cfg.num_layers, remat=False)
-    calls, assigned = [], []
+def _counted_run(fed, per_step, rounds=2, steps=4, **run_kw):
+    """``fed.run("elsa", ...)`` with every ``run_clients`` call counted (its
+    launches exactly members x steps x ``per_step``, its wall and host
+    syncs), the kernels' counts zeroed just before and read just after.
+    Returns (history, wall s, counts, calls)."""
+    calls = []
     run = _count_run_clients(fed.engine, per_step, calls)
-    _record_assign(fed, assigned)
     _zero_counts()                                   # the main path starts
     t0 = time.time()
-    hist = fed.run("elsa", global_rounds=rounds, steps_per_round=steps)
+    try:
+        hist = fed.run("elsa", global_rounds=rounds, steps_per_round=steps,
+                       **run_kw)
+    finally:
+        fed.engine.run_clients = run
     wall = time.time() - t0
     counts = _counts()                               # the main path ends
-    fed.engine.run_clients = run
     losses = [l for ls in hist["client_losses"].values() for l in ls]
     check(len(losses) > 0 and all(np.isfinite(losses))
           and all(np.isfinite(hist["loss"])), f"losses {hist['loss']}")
+    syncs = [len(c["syncs"]) for c in calls]
+    check(all(x == 1 for x in syncs),
+          f"host syncs a run_clients call {syncs}: "
+          f"{[c['syncs'] for c in calls]}")
+    return hist, wall, counts, calls
+
+
+def _run_federation(fed, rounds, steps):
+    """The main path: ``fed.run("elsa")`` counted by :func:`_counted_run`,
+    its edge assignment recorded.  Returns (history, wall s, counts,
+    calls, assigned groups)."""
+    assigned = []
+    _record_assign(fed, assigned)
+    hist, wall, counts, calls = _counted_run(
+        fed, _per_step(fed.cfg.num_layers, remat=False), rounds, steps)
     check(len(hist["accuracy"]) == rounds, f"history {hist}")
     check(all(v > 0 for v in counts.values()), f"launches {counts}")
     warm = fed.fed.n_clients * fed.fed.local_warmup_steps
@@ -1805,14 +1854,17 @@ def _run_federation(fed, rounds, steps):
     return hist, wall, counts, calls, assigned[0]
 
 
+def _step_ms(calls):
+    """The wall a client step over ``calls``: their total wall over their
+    client steps."""
+    return sum(c["ms"] for c in calls) / sum(
+        len(c["clients"]) * c["steps"] for c in calls)
+
+
 def _round_walls(calls):
     """The wall a client step over the rounds' ``run_clients`` calls (the
-    first call is the warm-up): their total wall over their client steps,
-    and each call's."""
-    rounds = calls[1:]
-    total = sum(c["ms"] for c in rounds) / sum(
-        len(c["clients"]) * c["steps"] for c in rounds)
-    return total, [c["client_step_ms"] for c in rounds]
+    first call is the warm-up), and each call's."""
+    return _step_ms(calls[1:]), [c["client_step_ms"] for c in calls[1:]]
 
 
 def federation_phase():
@@ -2135,39 +2187,22 @@ def runtime_phase(fed, phase10, rounds=2, steps=4):
                        ("deadline", dict(churn=churn, faults=faults)),
                        ("async", dict(churn=churn, faults=faults))):
         base = _memory_base()
-        calls = []
-        run = _count_run_clients(fed.engine, per_step, calls)
-        _zero_counts()                               # the main path starts
-        t0 = time.time()
-        try:
-            hist = fed.run("elsa", global_rounds=rounds,
-                           steps_per_round=steps,
-                           runtime=RuntimeConfig(policy=policy, **kw))
-        finally:
-            fed.engine.run_clients = run
-        wall = time.time() - t0
-        counts = _counts()                           # the main path ends
+        hist, wall, counts, calls = _counted_run(
+            fed, per_step, rounds, steps,
+            runtime=RuntimeConfig(policy=policy, **kw))
         peak = _peak_gib(base)
         launches = {k: launches[k] + v for k, v in counts.items()}
         trace = hist["trace"]
-        losses = [l for ls in hist["client_losses"].values() for l in ls]
         check(hist["policy"] == policy and len(hist["round"]) >= 1,
               f"{policy}: history {hist['round']}")
-        check(len(losses) > 0 and all(np.isfinite(losses))
-              and all(np.isfinite(hist["loss"])),
-              f"{policy}: losses {hist['loss']}")
         sent, done = _trace_consistent(trace, n, len(hist["round"]))
         syncs = [len(c["syncs"]) for c in calls]
-        check(all(x == 1 for x in syncs),
-              f"{policy}: host syncs a run_clients call {syncs}: "
-              f"{[c['syncs'] for c in calls]}")
         warm = calls[0]
         check(len(warm["clients"]) * warm["steps"]
               == n * fed.fed.local_warmup_steps, f"warm-up call {warm}")
         rounds_calls = calls[1:]
         cohort = [len(c["clients"]) for c in rounds_calls]
-        step_ms = sum(c["ms"] for c in rounds_calls) / sum(
-            len(c["clients"]) * c["steps"] for c in rounds_calls)
+        step_ms = _step_ms(rounds_calls)
         if policy == "sync":
             for key in ("round", "accuracy", "loss", "delta"):
                 check(hist[key] == phase10[key],
@@ -2201,6 +2236,357 @@ def runtime_phase(fed, phase10, rounds=2, steps=4):
             mean_cohort=statistics.mean(cohort), step_ms=step_ms,
             syncs_per_call=syncs, run_s=wall, launches=counts,
             peak_gib=peak, base_gib=base / 2 ** 30)
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# 14. update screening
+# ---------------------------------------------------------------------------
+
+def _stats_f64(base, trees, weights):
+    """The screening statistics recomputed on the CPU in float64 from the
+    same trees: finite masks, delta norms, cosines against the
+    finite-masked weighted-mean delta."""
+    def host(tree):
+        return [x.detach().to("cpu", torch.float64) for x in tree_leaves(tree)]
+    b = host(base)
+    deltas = [[x - y for x, y in zip(host(t), b)] for t in trees]
+    fin = np.array([all(bool(torch.isfinite(x).all()) for x in d)
+                    for d in deltas])
+    norms = np.array([float(sum(torch.sum(x * x) for x in d)) ** 0.5
+                      for d in deltas])
+    w = np.asarray(weights, np.float64) * fin
+    wsum = max(float(w.sum()), 1e-12)
+    mean = [sum(float(wi) * torch.where(torch.isfinite(d[j]), d[j], 0.0)
+                for wi, d in zip(w, deltas)) / wsum for j in range(len(b))]
+    mnorm = float(sum(torch.sum(m * m) for m in mean)) ** 0.5
+    dot = np.array([float(sum(torch.sum(x * m) for x, m in zip(d, mean)))
+                    for d in deltas])
+    return fin, norms, dot / np.maximum(norms * mnorm, 1e-12)
+
+
+def _raw_verdicts(stats, cfg):
+    """Each update's verdict before the trust floor (nonfinite, norm, flip
+    or ok), and whether its statistic lies within 1e-5 relative of the
+    threshold that decided it."""
+    fin, norms, cos = stats
+    med = float(np.median(norms[fin])) if fin.any() else 0.0
+    out = []
+    for i in range(len(fin)):
+        near = bool(fin[i]) and (
+            (med > 0 and abs(norms[i] - cfg.norm_k * med)
+             <= 1e-5 * cfg.norm_k * med)
+            or abs(cos[i] - cfg.cos_min) <= 1e-5 * abs(cfg.cos_min))
+        if not fin[i]:
+            v = "nonfinite"
+        elif med > 0 and norms[i] > cfg.norm_k * med:
+            v = "norm"
+        elif cos[i] < cfg.cos_min:
+            v = "flip"
+        else:
+            v = "ok"
+        out.append((v, near))
+    return out
+
+
+@contextlib.contextmanager
+def _checked_screen_stats(cfg, passes):
+    """Every screening pass's ``screen_stats`` (the round loop's and the
+    schedulers') timed, its host syncs counted, and held against
+    :func:`_stats_f64`: equal finite masks, norms and cosines to 1e-5
+    relative (cosines to 1e-5 absolute), equal verdicts except within
+    1e-5 of a threshold.  Each pass goes to ``passes``."""
+    from repro_torch.federation import engine, simulation
+    from repro_torch.runtime import schedulers
+    real = engine.screen_stats
+
+    def stats(base, trees, weights):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out, syncs = _syncs_of(lambda: real(base, trees, weights))
+        ms = (time.time() - t0) * 1e3
+        want = _stats_f64(base, trees, weights)
+        fin = want[0]
+        check(np.array_equal(out[0], fin),
+              f"finite masks {out[0]} != {fin}")
+        norm_err = float(np.max(np.abs(out[1][fin] - want[1][fin])
+                                / np.maximum(want[1][fin], 1e-30),
+                                initial=0.0))
+        cos_err = float(np.max(np.abs(out[2][fin] - want[2][fin]),
+                               initial=0.0))
+        check(norm_err <= 1e-5 and cos_err <= 1e-5,
+              f"screen_stats against f64: norms {norm_err:.2e}, cosines "
+              f"{cos_err:.2e}")
+        got_v, want_v = _raw_verdicts(out, cfg), _raw_verdicts(want, cfg)
+        differ = [i for i, (a, b) in enumerate(zip(got_v, want_v))
+                  if a[0] != b[0]]
+        check(all(want_v[i][1] for i in differ),
+              f"verdicts {got_v} != f64 {want_v} away from a threshold")
+        passes.append(dict(n=len(trees), ms=ms, syncs=len(syncs),
+                           where=syncs, norm_rel_err=norm_err,
+                           cos_abs_err=cos_err, differ=len(differ),
+                           near=sum(b[1] for b in want_v)))
+        return out
+
+    simulation.screen_stats = schedulers.screen_stats = stats
+    try:
+        yield
+    finally:
+        simulation.screen_stats = schedulers.screen_stats = real
+
+
+def _screened_config():
+    """Phase 10's federation with ``screen=True`` and Eq. 16's threshold at
+    0, so that every run takes both rounds: an edge whose only update is
+    screened out keeps its model, and the round's delta can then fall
+    under the default threshold."""
+    return dataclasses.replace(_bert_fed_config(), screen=True, xi=0.0)
+
+
+def _nan_faults(n):
+    """The JAX package's screening acceptance trace
+    (``tests/test_fault_tolerance.py``) at ``n`` clients: a quarter of
+    them ship NaN updates on every dispatch."""
+    return make_fault_trace(n, faulty_frac=0.25, corrupt_rate=1.0,
+                            corrupt_modes=("nan",), seed=11)
+
+
+def screening_phase():
+    """Phase 10's federation with ``screen=True`` (:func:`_screened_config`):
+    (a) ``run("elsa")`` on the plain loop, (b) the sync runtime under the
+    NaN fault trace, (c) the deadline and async runtimes under phase 13's
+    churn and fault traces (sign-flipped and scaled updates), each 2
+    rounds of 4 local steps.  Every screening pass is held against its
+    float64 recomputation (:func:`_checked_screen_stats`) and must make
+    one host sync; in (b) every update of a faulty client must be judged
+    nonfinite and theta finite at every round's evaluation; the losses
+    are finite, the event traces consistent, and every ``run_clients``
+    call launches phase 10's counts with one host sync.  Reports the
+    verdicts by kind, the fallbacks, the trust EMA's min and mean, the
+    screening time and syncs a pass, and the wall a client step of each
+    run."""
+    from repro_torch import telemetry as tm
+    fed_cfg = _screened_config()
+    n = fed_cfg.n_clients
+    churn = make_churn_trace(n, 10_000.0, mean_on_s=40.0, mean_off_s=15.0,
+                             churn_frac=0.5, seed=2)
+    faults = make_fault_trace(n, faulty_frac=0.5, crash_rate=0.1,
+                              drop_rate=0.1, dup_rate=0.1, corrupt_rate=0.1,
+                              corrupt_modes=("signflip", "scale"), seed=3)
+    nan_faults = _nan_faults(n)
+    fed = Federation(fed_cfg, device="cuda")
+    per_step = _per_step(fed.cfg.num_layers, remat=False)
+    out, launches = {}, {k: 0 for k in _counts()}
+    for label, runtime in (
+            ("plain", None),
+            ("sync, NaN updates", RuntimeConfig("sync", faults=nan_faults)),
+            ("deadline", RuntimeConfig("deadline", churn=churn,
+                                       faults=faults)),
+            ("async", RuntimeConfig("async", churn=churn, faults=faults))):
+        passes, evals, log0 = [], [], len(fed.screen_log)
+
+        def checked_eval(theta, evaluate=fed.evaluate):
+            evals.append(all(bool(torch.isfinite(x).all())
+                             for x in tree_leaves(theta)))
+            return evaluate(theta)
+        fed.evaluate = checked_eval
+        tel = tm.enable()
+        try:
+            with _checked_screen_stats(fed.screening, passes):
+                hist, wall, counts, calls = _counted_run(
+                    fed, per_step, runtime=runtime)
+        finally:
+            tm.disable()
+            del fed.evaluate
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        reports = fed.screen_log[log0:]
+        check(len(passes) > 0, f"{label}: no screening pass")
+        check(all(p_["syncs"] == 1 for p_ in passes),
+              f"{label}: host syncs a screening pass "
+              f"{[p_['where'] for p_ in passes]}")
+        check(all(evals), f"{label}: theta not finite at an evaluation "
+                          f"{evals}")
+        if runtime is not None:
+            _trace_consistent(hist["trace"], n, len(hist["round"]))
+        if label.startswith("sync"):
+            judged = [(c, v) for r in reports
+                      for c, v in zip(r.clients, r.verdicts)]
+            check(any(v == "nonfinite" for _, v in judged),
+                  f"{label}: no update judged nonfinite: {judged}")
+            check(all(v == "nonfinite" for c, v in judged
+                      if c in nan_faults.faulty),
+                  f"{label}: a NaN update passed: {judged}")
+            check(len(evals) == len(hist["round"]) == 2,
+                  f"{label}: rounds {hist['round']}")
+        verdicts = {k.split("=")[1].rstrip("}"): int(v)
+                    for k, v in tel.counters.items()
+                    if k.startswith("screening.verdicts{")}
+        fallbacks = {k.split("=")[1].rstrip("}"): int(v)
+                     for k, v in tel.counters.items()
+                     if k.startswith("screening.fallbacks{")}
+        led = fed.trust_ledger
+        rounds_calls = calls[1:]
+        step_ms = _step_ms(rounds_calls)
+        pass_ms = [p_["ms"] for p_ in passes]
+        print(f"screening, {label}: rounds {hist['round']}, accuracy "
+              f"{hist['accuracy']}, loss {[round(x, 4) for x in hist['loss']]}"
+              f", delta {[f'{x:.3e}' for x in hist['delta']]}")
+        print(f"  verdicts {verdicts}, fallbacks {fallbacks}; trust EMA min "
+              f"{led.scores.min():.4f} mean {led.scores.mean():.4f}, passes "
+              f"{led.passes.tolist()} fails {led.fails.tolist()}")
+        print(f"  {len(passes)} screening passes of "
+              f"{sorted({p_['n'] for p_ in passes})} updates: "
+              f"{statistics.median(pass_ms):.2f} ms a pass (median; max "
+              f"{max(pass_ms):.2f}), host syncs a pass "
+              f"{sorted({p_['syncs'] for p_ in passes})}; against f64: "
+              f"norms {max(p_['norm_rel_err'] for p_ in passes):.2e} "
+              f"relative, cosines "
+              f"{max(p_['cos_abs_err'] for p_ in passes):.2e}; verdicts "
+              f"differing {sum(p_['differ'] for p_ in passes)}, statistics "
+              f"within 1e-5 of a threshold "
+              f"{sum(p_['near'] for p_ in passes)}")
+        print(f"  {len(rounds_calls)} run_clients calls after the warm-up, "
+              f"{step_ms:.2f} ms a client step; run {wall:.1f}s; launches "
+              f"{counts}"
+              + (f"; trace {hist['trace'].summary()}" if runtime else ""))
+        out[label] = dict(
+            round=hist["round"], accuracy=hist["accuracy"],
+            loss=hist["loss"], delta=hist["delta"],
+            client_losses=hist["client_losses"],
+            time=hist.get("time"), verdicts=verdicts, fallbacks=fallbacks,
+            reports=[dict(clients=list(map(int, r.clients)),
+                          verdicts=r.verdicts, kept=r.kept,
+                          fallback=r.fallback) for r in reports],
+            trust_min=float(led.scores.min()),
+            trust_mean=float(led.scores.mean()),
+            trust=led.scores.tolist(), passes_ok=led.passes.tolist(),
+            fails=led.fails.tolist(), screen_passes=passes,
+            pass_ms_median=statistics.median(pass_ms),
+            syncs_per_pass=sorted({p_["syncs"] for p_ in passes}),
+            step_ms=step_ms, calls=calls, run_s=wall, launches=counts,
+            trace_summary=(hist["trace"].summary() if runtime else None))
+    del fed
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# 15. checkpoints
+# ---------------------------------------------------------------------------
+
+def _same_history(got, want, keys, label):
+    for key in keys:
+        check(got[key] == want[key],
+              f"{label}: {key} {got[key]} != {want[key]}")
+
+
+def checkpoint_phase(phase10, phase14):
+    """Full-state federation checkpoints.  Phase 10's federation for 2
+    rounds of 4 local steps with ``CheckpointConfig(every=1, keep=2)``:
+    its history must be phase 10's bit for bit (checkpointing is off the
+    math path).  A new ``Federation`` resumed from the round-0 file must
+    finish with the uninterrupted run's history and final theta bit for
+    bit.  The same on the sync runtime with phase 14 (b)'s screening and
+    NaN fault trace, where the trust ledger must also come back equal;
+    the deadline and async policies must refuse ``checkpoint=`` with the
+    ``ValueError``.  Reports each file's bytes and the save and restore
+    times."""
+    import tempfile
+
+    from repro_torch import telemetry as tm
+    from repro_torch.checkpoint import CheckpointConfig, tree_equal
+    from repro_torch.checkpoint import federation as fedckpt
+    keys = ("round", "accuracy", "loss", "delta", "client_losses")
+    base_cfg, screen_cfg = _bert_fed_config(), _screened_config()
+    sync = RuntimeConfig("sync", faults=_nan_faults(base_cfg.n_clients))
+    out, launches = {}, {k: 0 for k in _counts()}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        for label, cfg, runtime, want in (
+                ("plain", base_cfg, None, phase10),
+                ("sync, screening, NaN updates", screen_cfg, sync, None)):
+            d = os.path.join(tmp, label.split(",")[0])
+            fed = Federation(cfg, device="cuda")
+            per_step = _per_step(fed.cfg.num_layers, remat=False)
+            tel = tm.enable()
+            try:
+                hist, wall, counts, calls = _counted_run(
+                    fed, per_step, runtime=runtime,
+                    checkpoint=CheckpointConfig(dir=d, every=1, keep=2))
+            finally:
+                tm.disable()
+            launches = {k: launches[k] + v for k, v in counts.items()}
+            files = fedckpt.list_checkpoints(d)
+            check([os.path.basename(f) for f in files]
+                  == ["ckpt_round_000000.msgpack",
+                      "ckpt_round_000001.msgpack"], f"{label}: {files}")
+            if want is not None:
+                _same_history(hist, want, keys, f"{label} vs phase 10")
+            theta, ledger = fed.last_theta, fed.trust_ledger
+            del fed
+            torch.cuda.empty_cache()
+            fed = Federation(cfg, device="cuda")
+            tel_r = tm.enable()
+            try:
+                res, wall_r, counts_r, calls_r = _counted_run(
+                    fed, per_step, runtime=runtime,
+                    resume_from=fedckpt.round_path(d, 0))
+            finally:
+                tm.disable()
+            launches = {k: launches[k] + v for k, v in counts_r.items()}
+            check(len(calls_r) == (len(calls) - 1) // 2,
+                  f"{label}: the resume ran {len(calls_r)} run_clients "
+                  f"calls, the run {len(calls)} (a warm-up and 2 rounds)")
+            _same_history(res, hist, keys + (("time",) if runtime else ()),
+                          f"{label}: resumed vs uninterrupted")
+            check(tree_equal(fed.last_theta, theta),
+                  f"{label}: the resumed final theta differs")
+            if runtime is not None:
+                check(res["trace"].records == hist["trace"].records,
+                      f"{label}: the resumed event trace differs")
+                for k in ("scores", "passes", "fails"):
+                    check(np.array_equal(getattr(fed.trust_ledger, k),
+                                         getattr(ledger, k)),
+                          f"{label}: ledger {k} differs after the resume")
+            if runtime is not None:
+                for policy in ("deadline", "async"):
+                    try:
+                        fed.run("elsa", global_rounds=2,
+                                runtime=RuntimeConfig(policy),
+                                checkpoint=CheckpointConfig(dir=d))
+                        check(False, f"{policy} took checkpoint=")
+                    except ValueError as e:
+                        check("'sync' runtime policy only" in str(e),
+                              f"{policy}: {e}")
+            save_h = tel.histograms["checkpoint.save_s"]
+            restore_h = tel_r.histograms["checkpoint.restore_s"]
+            sizes = [os.path.getsize(f) for f in files]
+            same_14 = None
+            if runtime is not None:
+                p14 = phase14["sync, NaN updates"]
+                same_14 = all(hist[k] == p14[k] for k in keys + ("time",))
+            print(f"checkpoints, {label}: history {hist['accuracy']}, loss "
+                  f"{[round(x, 4) for x in hist['loss']]}"
+                  + (" = phase 10's bit for bit" if want is not None else
+                     f" (phase 14 (b)'s bit for bit: {same_14})"))
+            print(f"  files {sizes} bytes; save "
+                  f"{save_h.sum / save_h.count:.3f} s a file (max "
+                  f"{save_h.max:.3f}), restore "
+                  f"{restore_h.sum:.3f} s; run {wall:.1f}s, resumed run "
+                  f"{wall_r:.1f}s ({_step_ms(calls_r):.2f} ms a client step; "
+                  f"launches {counts_r}); resumed history, theta"
+                  + (", trace and ledger" if runtime else "")
+                  + " bit-equal")
+            out[label] = dict(
+                accuracy=hist["accuracy"], loss=hist["loss"],
+                delta=hist["delta"], file_bytes=sizes,
+                save_s=[save_h.sum / save_h.count, save_h.max],
+                restore_s=restore_h.sum, run_s=wall, resumed_run_s=wall_r,
+                step_ms=_step_ms(calls[1:]),
+                resumed_step_ms=_step_ms(calls_r), launches=counts,
+                resumed_launches=counts_r, same_as_phase14b=same_14)
+            del fed
+            torch.cuda.empty_cache()
     return out, launches
 
 
@@ -2457,6 +2843,10 @@ def main():
         runtime, runtime_launches = runtime_phase(fed, federation)
     del fed
     torch.cuda.empty_cache()
+    with phase("14 update screening"), _recording_lora_calls(path_calls):
+        screening, screening_launches = screening_phase()
+    with phase("15 checkpoints"), _recording_lora_calls(path_calls):
+        ckpts, ckpt_launches = checkpoint_phase(federation, screening)
     with phase("10b split-training parity"):
         s_parity = split_parity_phase()
     with phase("12 causal-LM federation"), _recording_lora_calls(path_calls):
@@ -2477,6 +2867,8 @@ def main():
                "federation": fed_launches[name],
                "federation reference": ref_launches[name],
                "runtime": runtime_launches[name],
+               "screening": screening_launches[name],
+               "checkpoints": ckpt_launches[name],
                "causal-LM federation": causal_launches[name]}
         if name == "lora_matmul":
             out = {"serve": serve_launches, **out}
@@ -2564,6 +2956,7 @@ def main():
                    "federation": federation,
                    "federation_reference": fed_ref,
                    "cross_backend_step": cross, "runtime": runtime,
+                   "screening": screening, "checkpoints": ckpts,
                    "split_parity": s_parity,
                    "causal_lm_federation": causal,
                    **record}, f, indent=1, default=str)

@@ -12,14 +12,14 @@ versions of the kernels).  ``--backend batched`` (the default) runs each
 local round through the batched engine over the stacked clients,
 ``--backend reference`` the sequential loop; ``--model`` takes any
 registered split model, the dense causal LMs (llama3-8b, olmo-1b, the
-qwen configs) included.  The scalar history is written as JSON to
-``<out>/<method>_history.json`` (the JAX example's msgpack checkpoint
-format waits for ROADMAP.md, queue 5).
+qwen configs) included.  The scalar history is written with the port's
+``checkpoint.save`` to ``<out>/<method>_history.msgpack``, in the JAX
+package's checkpoint format (either package's ``restore`` reads it).
 """
 import argparse
-import json
 import os
 
+from repro_torch.checkpoint import save
 from repro_torch.federation.simulation import FedConfig, Federation
 
 
@@ -92,9 +92,8 @@ def main(argv=None):
     scalar_hist = {k: list(map(float, v)) if isinstance(v, list)
                    else float(v) for k, v in hist.items()
                    if isinstance(v, (list, int, float))}
-    with open(os.path.join(args.out, f"{args.method}_history.json"),
-              "w") as f:
-        json.dump(scalar_hist, f)
+    save(os.path.join(args.out, f"{args.method}_history.msgpack"),
+         scalar_hist)
     print(f"final accuracy: {hist['final_accuracy']:.4f} "
           f"(history -> {args.out})")
     return hist

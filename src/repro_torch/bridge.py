@@ -20,7 +20,10 @@ AdamW state (``step``, and ``m``/``v`` shaped like the LoRA tree) cross the
 same way.
 
 bfloat16 numpy arrays (ml_dtypes) cross as their 16-bit patterns, so
-nothing is rounded on the way.
+nothing is rounded on the way.  The port does not import ml_dtypes: a
+bfloat16 tensor crosses to numpy as ``np.dtype("bfloat16")``, which the
+JAX package registers with numpy when the process holds both packages (the
+only place the bridge is used).
 """
 from __future__ import annotations
 
@@ -91,8 +94,7 @@ def params_from_jax_numpy(cfg, frozen_np, lora_np, device="cuda", dtype=None):
 def _to_numpy(t):
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.view(torch.uint16).numpy().view(np.dtype("bfloat16"))
     return t.numpy()
 
 

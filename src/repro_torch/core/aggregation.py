@@ -133,6 +133,32 @@ def aggregate_adapters(trees: Sequence, weights: Sequence[float],
     raise ValueError(f"unknown aggregation mode {mode!r}")
 
 
+def trimmed_mean(trees: Sequence, trim_frac: float = 0.25):
+    """Coordinate-wise trimmed mean across client trees.
+
+    Per coordinate, the ``int(trim_frac * n)`` smallest and largest
+    values are discarded and the rest averaged (Yin et al. 2018), the
+    screening stage's small-cohort fallback.  Callers pass finite trees
+    (NaNs sort to the top and would survive a one-sided trim)."""
+    n = len(trees)
+    if n == 0:
+        raise ValueError("trimmed_mean: no trees to aggregate")
+    if not 0.0 <= trim_frac < 0.5:
+        raise ValueError(f"trim_frac must be in [0, 0.5), got {trim_frac}")
+    k = min(int(trim_frac * n), (n - 1) // 2)
+
+    def f(*leaves):
+        x = torch.sort(torch.stack(leaves), dim=0).values
+        # a sum in row order times the reciprocal count: XLA's mean, bit
+        # for bit (torch's sum over the rows splits them into partial sums)
+        total = x[k]
+        for row in x[k + 1:n - k]:
+            total = total + row
+        return (total * (1.0 / (n - 2 * k))).to(leaves[0].dtype)
+
+    return tree_map(f, *trees)
+
+
 def mix_adapters(theta, update, w: float, mode: str = "factor"):
     """Asynchronous edge fold ``θ ← (1-w)·θ + w·update`` in the chosen
     space (the async scheduler's staleness-weighted mixing)."""

@@ -41,9 +41,9 @@ class CountingIterator:
     """Iterator wrapper that counts draws, so a seeded stream can be
     reproduced exactly after a restart: checkpoint the count, rebuild
     the same seeded iterator in the new process, and
-    :meth:`fast_forward` to it.  The JAX package's federation checkpoints
-    rely on this for the per-client batch streams (in the port they wait
-    for ROADMAP.md, queue 5)."""
+    :meth:`fast_forward` to it.  The federation checkpoints
+    (:mod:`repro_torch.checkpoint.federation`) rely on this for the
+    per-client batch streams."""
 
     def __init__(self, it):
         self._it = it

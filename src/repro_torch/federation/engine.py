@@ -32,11 +32,15 @@ client axis inside the kernels and a captured graph per (split, bucket)
 client gets what the JAX engine gives it: there their loss and gradients
 are exactly zero and their results are dropped.
 
+:func:`screen_stats` gives the screening stage its per-update delta
+statistics (plain tensor arithmetic on the trees' device, as the JAX
+package leaves them to XLA, and one transfer to the host).
+
 Not ported: ``mesh=`` (the multi-GPU engine, ROADMAP.md queue 8) raises;
-``screen_stats`` (queue 5), ``compile_cache_sizes`` and the engine's
-gauges and compile counter (queue 6 and the graph capture) wait, and the
-JAX placement helpers (``placement_platform``, ``donate_buffers``) have
-``device`` as their counterpart.
+``compile_cache_sizes`` and the engine's gauges and compile counter
+(queue 6 and the graph capture) wait, and the JAX placement helpers
+(``placement_platform``, ``donate_buffers``) have ``device`` as their
+counterpart.
 """
 from __future__ import annotations
 
@@ -88,6 +92,45 @@ def broadcast_tree(tree, n: int):
 def index_tree(tree, i: int):
     """Client i of a stacked tree (views of the stacked leaves)."""
     return tree_map(lambda a: a[i], tree)
+
+
+@torch.no_grad()
+def screen_stats(base, trees: Sequence, weights: Sequence[float]):
+    """Per-update delta statistics for the screening stage: for each
+    client update in ``trees`` against the shared dispatch model
+    ``base``, whether every leaf is finite, the global delta norm, and
+    the cosine against the finite-masked weighted-mean delta of the
+    cohort.  Returns numpy ``(finite bool[N], delta_norm f64[N], cos
+    f64[N])``, fetched from the device in one transfer (the weights go
+    up through pinned memory, so that is the pass's one host sync).
+
+    As in the JAX package, the updates, ``base`` and the weights are cast
+    to float32 before the deltas are formed, whatever the trees' type, so
+    an x64 run judges its updates on the same f32 statistics.  Each tree
+    is flattened into one row, so a pass is a few whole-cohort ops and
+    not a few per leaf."""
+    f32 = torch.float32
+
+    def flat(tree):
+        return torch.cat([x.reshape(-1).to(f32) for x in tree_leaves(tree)])
+    deltas = torch.stack([flat(t) for t in trees]) - flat(base)   # (N, P)
+    finite = torch.isfinite(deltas)
+    fin = finite.all(dim=1)
+    norms = torch.sqrt(torch.sum(deltas * deltas, dim=1))
+    w = torch.tensor([float(x) for x in weights], dtype=f32)
+    if deltas.is_cuda:
+        w = w.pin_memory().to(deltas.device, non_blocking=True)
+    # the cohort's mean delta over finite updates only (NaN entries zeroed
+    # so one poisoned client cannot poison the reference direction)
+    wmask = w * fin
+    mean = (wmask @ torch.where(finite, deltas, 0.0)) \
+        / torch.clamp(wmask.sum(), min=1e-12)
+    dot = deltas @ mean
+    mnorm = torch.sqrt(torch.sum(mean * mean))
+    cos = dot / torch.clamp(norms * mnorm, min=1e-12)
+    out = torch.stack([fin.to(f32), norms, cos]).cpu().numpy()
+    return (out[0] > 0, out[1].astype(np.float64),
+            out[2].astype(np.float64))
 
 
 def _clip_rows(grads, max_norm: float):

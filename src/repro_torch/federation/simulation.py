@@ -18,10 +18,13 @@ attention, and the channel's SS-OP, scatter and gather, forward and
 backward).  ``run(runtime=RuntimeConfig(...))`` hands the run to the
 event-driven :class:`~repro_torch.runtime.EdgeRuntime` (sync, deadline
 and async policies over a simulated clock, with churn and fault traces).
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP.md item: ``mesh=`` (queue 8), ``run(checkpoint=)``/
-``run(resume_from=)`` and ``FedConfig(screen=True)`` (queue 5),
-``run(population=)`` (queue 7).
+``FedConfig(screen=True)`` screens every cohort's updates before the edge
+aggregates them and keeps a live trust EMA per client
+(:mod:`repro_torch.core.screening`); ``run(checkpoint=, resume_from=)``
+snapshots the whole federation state each round and resumes a killed run
+bit-identically (:mod:`repro_torch.checkpoint.federation`).  Not ported
+yet, and raising ``NotImplementedError`` that names the ROADMAP.md item:
+``mesh=`` (queue 8) and ``run(population=)`` (queue 7).
 
 Entry points take ``device`` and default to ``"cuda"``; the CPU runs only
 when a caller passes ``device="cpu"``.
@@ -40,7 +43,8 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import clustering as clus
 from repro_torch.core import splitting as split_mod
 from repro_torch.core.fingerprint import divergence_matrix, fingerprint
-from repro_torch.core.screening import ScreeningConfig, TrustLedger
+from repro_torch.core.screening import (ScreeningConfig, TrustLedger,
+                                        screen_and_aggregate, screen_updates)
 from repro_torch.core.sketch import make_plan
 from repro_torch.core.split_training import (Channel, Split, loss_and_grad,
                                              split_loss)
@@ -51,7 +55,7 @@ from repro_torch.data.probe import make_probe_set
 from repro_torch.data.synthetic import (SyntheticTaskConfig,
                                         make_federation_data, make_test_set)
 from repro_torch.federation.engine import (BatchedEngine, _not_ported,
-                                           is_client_map)
+                                           is_client_map, screen_stats)
 from repro_torch.federation.topology import make_topology
 from repro_torch.models.params import init_tree
 from repro_torch.models.split_api import get_split_model
@@ -102,14 +106,15 @@ class FedConfig:
     server_lr: float = 0.05              # server-opt lr
     pooling: str = "cls"                 # encoder readout: "cls" | "mean"
     vocab_size: int = 0                  # >0: override the model vocab
-    # -- update screening (ROADMAP.md, queue 5): off, and raises if on ----
-    screen: bool = False
-    screen_norm_k: float = 4.0
-    screen_cos_min: float = -0.5
-    screen_trust_beta: float = 0.7
-    screen_trust_floor: float = 0.15
-    screen_min_cohort: int = 2
-    screen_trim_frac: float = 0.25
+    # -- update screening; off by default and bit-inert when off ---------
+    screen: bool = False                 # server-side update screening
+    screen_norm_k: float = 4.0           # reject ||delta|| > k * median
+    screen_cos_min: float = -0.5         # reject cos(delta, cohort mean)
+                                         # below this (sign-flip catch)
+    screen_trust_beta: float = 0.7       # trust-EMA retention
+    screen_trust_floor: float = 0.15     # exclude trust EMA below this
+    screen_min_cohort: int = 2           # fewer survivors -> trimmed mean
+    screen_trim_frac: float = 0.25       # fallback per-side trim fraction
 
     def __post_init__(self):
         if self.aggregate not in ("product", "factor"):
@@ -124,9 +129,6 @@ class FedConfig:
             raise ValueError(f"unknown server_opt {self.server_opt!r}")
         if self.pooling not in ("cls", "mean"):
             raise ValueError(f"unknown pooling {self.pooling!r}")
-        if self.screen:
-            raise _not_ported("FedConfig(screen=True): update screening",
-                              "queue 5")
         if self.bert_layers is not None and self.layers != self.bert_layers:
             warnings.warn(
                 "FedConfig.bert_layers is deprecated; use FedConfig.layers "
@@ -213,6 +215,7 @@ class Federation:
             trim_frac=fed.screen_trim_frac)
         self.trust_ledger = TrustLedger(fed.n_clients,
                                         beta=fed.screen_trust_beta)
+        self.screen_log: List = []           # one ScreenReport a pass
         # a registry-backed population would be bound here by
         # run(population=), which is not ported (queue 7)
         self._population = None
@@ -434,20 +437,57 @@ class Federation:
         losses = {n: res[n][1] for n in active}
         return locals_, weights, losses
 
+    # -- update screening ----------------------------------------------
+    def _screen_identities(self, clients):
+        """(ledger, keys) for one screening pass.  Without a bound
+        population (``run(population=)`` is not ported, queue 7),
+        identity == slot and the slot ledger is used directly."""
+        return self.trust_ledger, list(clients)
+
     def screened_aggregate(self, clients, trees, weights, base):
-        """Edge aggregation.  Screening is off (``FedConfig(screen=True)``
-        raises), so this is ``aggregate_adapters(trees, weights)``."""
-        return agg.aggregate_adapters(trees, weights, mode=self.fed.aggregate)
+        """Edge aggregation with the optional screening stage.
+
+        With ``FedConfig.screen`` off this IS
+        ``agg.aggregate_adapters(trees, weights)``: the same call, the
+        same floats.  With it on, updates are screened against ``base``
+        (the model they were dispatched from), the trust EMA is updated
+        from the verdicts, survivors are trust-down-weighted, and an
+        over-screened cohort falls back to the trimmed mean
+        (:mod:`repro_torch.core.screening`)."""
+        if not self.fed.screen:
+            return agg.aggregate_adapters(trees, weights,
+                                          mode=self.fed.aggregate)
+        ledger, keys = self._screen_identities(clients)
+        out, report = screen_and_aggregate(
+            base, trees, weights, keys, ledger,
+            self.screening, mode=self.fed.aggregate, stats_fn=screen_stats)
+        self.screen_log.append(report)
+        return out
 
     def screen_cohort(self, clients, trees, weights, base):
         """Screening without aggregation, for schedulers that combine
-        arrivals with an anchor term (the deadline policy).  Screening is
-        off (``FedConfig(screen=True)`` raises), so every update survives
-        with its weight."""
-        return list(trees), list(weights)
+        arrivals with an anchor term (the deadline policy): returns the
+        surviving ``(trees, weights)`` with trust-scaled weights.  A
+        fully-screened-out cohort returns empty lists; the caller's
+        anchor then carries the round."""
+        if not self.fed.screen:
+            return list(trees), list(weights)
+        ledger, keys = self._screen_identities(clients)
+        report = screen_updates(base, trees, weights, keys,
+                                ledger, self.screening,
+                                stats_fn=screen_stats)
+        self.screen_log.append(report)
+        kept_trees = [trees[i] for i in report.kept]
+        kept_wts = [float(weights[i]) * ledger.weight(keys[i])
+                    for i in report.kept]
+        return kept_trees, kept_wts
 
     def fusion_trust(self, trust, members) -> float:
-        """Mean clustering-time trust of an edge's members (Eq. 14)."""
+        """Mean trust feeding an edge's cloud-fusion weight (Eq. 14): the
+        live screening EMA when screening is on, the static
+        clustering-time scores otherwise."""
+        if self.fed.screen:
+            return float(np.mean(self.trust_ledger.scores[list(members)]))
         return float(np.mean(trust[list(members)]))
 
     # ------------------------------------------------------------------
@@ -464,7 +504,13 @@ class Federation:
         to the event-driven :class:`repro_torch.runtime.EdgeRuntime`: the
         history gains a simulated ``time`` axis, the ``policy`` and an
         event ``trace``; with ``policy="sync"`` and no churn or faults the
-        training math, and so the history, is this loop's."""
+        training math, and so the history, is this loop's.
+
+        ``checkpoint`` (a :class:`repro_torch.checkpoint.CheckpointConfig`)
+        snapshots the full federation state on a rolling cadence;
+        ``resume_from`` (a checkpoint file or its directory) restores one
+        and continues, bit-identically to the uninterrupted run on this
+        loop and the sync runtime policy."""
         if runtime is not None:
             from repro_torch.runtime import EdgeRuntime
             return EdgeRuntime(self, runtime).run(
@@ -472,18 +518,12 @@ class Federation:
                 steps_per_round=steps_per_round, eval_every=eval_every,
                 log=log, checkpoint=checkpoint, resume_from=resume_from,
                 population=population)
-        for name, value, item in (("run(checkpoint=): checkpoints",
-                                   checkpoint, "queue 5"),
-                                  ("run(resume_from=): resuming",
-                                   resume_from, "queue 5"),
-                                  ("run(population=): populations",
-                                   population, "queue 7")):
-            if value is not None:
-                raise _not_ported(name, item)
+        from repro_torch.checkpoint import federation as fedckpt
         fed = self.fed
         rng = np.random.default_rng(fed.seed + 5)
         history = {"round": [], "accuracy": [], "loss": [], "delta": []}
         use_split_dyn = method not in ("elsa-fixed",)
+        self._bind_population(population)
         iters = {n: CountingIterator(
                      infinite_batches(self.data[n].tokens,
                                       self.data[n].labels, fed.batch_size,
@@ -491,13 +531,31 @@ class Federation:
                  for n in range(fed.n_clients)}
         server_opt = self.server_optimizer(method)
 
-        with tm.span("profile", method=method):
-            groups, div, trust = self._assign_groups(method, rng)
-        theta = self.lora0
-        server_state = server_opt.init(theta) if server_opt else None
-        client_losses: Dict[int, List[float]] = {
-            n: [] for n in range(fed.n_clients)}
-        for g in range(global_rounds):
+        start_round, last_delta = 0, float("inf")
+        if resume_from is not None:
+            state = fedckpt.load_state(fedckpt.resolve(resume_from))
+            res = fedckpt.restore_run(self, state, method=method,
+                                      steps_per_round=steps_per_round,
+                                      iters=iters, rng=rng)
+            groups, div, trust = res.groups, res.div, res.trust
+            theta, server_state = res.theta, res.server_state
+            history, client_losses = res.history, res.client_losses
+            start_round, last_delta = res.round_idx + 1, res.delta
+        else:
+            with tm.span("profile", method=method):
+                groups, div, trust = self._assign_groups(method, rng)
+            theta = self.lora0
+            server_state = server_opt.init(theta) if server_opt else None
+            client_losses: Dict[int, List[float]] = {
+                n: [] for n in range(fed.n_clients)}
+        ckpt = fedckpt.Checkpointer(checkpoint) if checkpoint else None
+        if last_delta <= fed.xi:
+            # the checkpointed run had already converged (Eq. 16)
+            history["final_accuracy"] = history["accuracy"][-1]
+            history["client_losses"] = client_losses
+            self.last_theta = theta
+            return history
+        for g in range(start_round, global_rounds):
             edge_thetas, edge_alphas, losses = {}, {}, []
             actives = {}
             for k, members in groups.items():
@@ -556,6 +614,14 @@ class Federation:
                 if log:
                     print(f"[{method}] round {g}: acc={acc:.4f} "
                           f"loss={np.mean(losses):.4f} delta={delta:.2e}")
+            if ckpt is not None and ckpt.due(g, global_rounds - 1, delta,
+                                            fed.xi):
+                ckpt.save(g, fedckpt.build_state(
+                    self, method=method, steps_per_round=steps_per_round,
+                    round_idx=g, theta=theta, server_state=server_state,
+                    rng=rng, iters=iters, history=history,
+                    client_losses=client_losses, groups=groups, div=div,
+                    trust=trust, delta=delta))
             tm.end_round(g)
             if delta <= fed.xi:
                 break

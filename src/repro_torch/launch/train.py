@@ -189,11 +189,15 @@ def batch_stream(cfg, batch: int, seq: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _main(argv=None):
-    """Returns ``{"losses": [(step, loss)], "step_s": [s per step]}`` for
-    the steps it logged; each logged step ends in a device sync."""
+    """Returns ``{"losses": [(step, loss)], "step_s": [s per step],
+    "lora": the trained LoRA tree}`` for the steps it logged; each logged
+    step ends in a device sync.  ``--ckpt PATH`` writes the trained tree
+    with ``save_state(PATH, params={"lora": lora}, step=steps)``, in the
+    port's layout (``"blocks"`` a list of per-layer dicts)."""
     import argparse
     import time
 
+    from repro_torch.checkpoint import save_state
     from repro_torch.configs import ASSIGNED, get_config
     from repro_torch.models.params import count_params, init_tree
 
@@ -208,14 +212,11 @@ def _main(argv=None):
                     help="full-size config (needs the card)")
     ap.add_argument("--elsa", action="store_true",
                     help="train through the ELSA tripartite split channel")
-    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--ckpt", default="",
+                    help="write the trained LoRA tree here (save_state)")
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: the checkpoint module is not ported yet (ROADMAP.md, "
-            "queue 5)")
 
     device = torch.device(args.device)
     cfg = get_config(args.arch)
@@ -255,6 +256,10 @@ def _main(argv=None):
             out["step_s"].append(time.time() - t_step)
             print(f"step {i:5d}  loss {loss:.4f}  "
                   f"({(time.time()-t0):.1f}s)", flush=True)
+    out["lora"] = lora
+    if args.ckpt:
+        save_state(args.ckpt, params={"lora": lora}, step=args.steps)
+        print(f"saved LoRA checkpoint -> {args.ckpt}")
     return out
 
 

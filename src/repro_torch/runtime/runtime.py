@@ -15,10 +15,11 @@ policy's scheduler.  Usage::
 
 Each policy's ready-set dispatches route through ``Federation.group_steps``
 into the federation's backend: on a CUDA device the batched engine runs
-every client step through the hand-written kernels.  Not ported yet, and
-raising ``NotImplementedError`` that names the ROADMAP.md item:
-checkpoints and resuming on the sync policy (queue 5) and populations
-(queue 7).
+every client step through the hand-written kernels.  ``checkpoint=`` and
+``resume_from=`` work on the sync policy and raise ``ValueError`` under
+the deadline and async policies, whose event queues carry in-flight state
+across rounds.  Not ported yet, and raising ``NotImplementedError`` that
+names the ROADMAP.md item: populations (queue 7).
 """
 from __future__ import annotations
 

@@ -26,13 +26,17 @@ All three inject faults from ``RuntimeConfig.faults`` (a seeded
 :class:`~repro_torch.federation.topology.FaultTrace`): crashes lose
 in-flight work, drops lose the uplink after training, dups deliver it
 twice, and corruptions mangle the arriving adapter update — each sampled
-per dispatch.  Not ported yet: checkpoints and resuming on the sync
-policy (raising ``NotImplementedError`` that names ROADMAP.md's queue 5)
-and populations (``Federation._bind_population`` raises, queue 7), so the
-reference's population branches are left out.  Update screening has no
-branch here: ``FedConfig(screen=True)`` raises (queue 5), and the
-deadline policy's ``screen_cohort`` call passes a cohort through
-unchanged.
+per dispatch, so the schedule is identical whether screening is on or
+off.  With ``FedConfig(screen=True)`` the sync policy's edges aggregate
+through ``Federation.screened_aggregate``, the deadline policy screens each
+window's arrivals with ``Federation.screen_cohort``, and the async policy
+screens each arrival alone (the finite check) and scales its mixing
+weight by the client's trust.  The sync policy also supports full-state
+checkpoint/resume (:mod:`repro_torch.checkpoint.federation`): resuming a
+killed run reproduces the uninterrupted history bit-identically.
+Populations are not ported (``Federation._bind_population`` raises,
+ROADMAP.md queue 7), so the JAX package's population branches are left
+out.
 """
 from __future__ import annotations
 
@@ -43,8 +47,9 @@ import torch
 
 from repro_torch import telemetry as tm
 from repro_torch.core import aggregation as agg
+from repro_torch.core.screening import LOW_TRUST, NONFINITE, OK
 from repro_torch.data.pipeline import CountingIterator, infinite_batches
-from repro_torch.federation.engine import _not_ported
+from repro_torch.federation.engine import screen_stats
 from repro_torch.federation.topology import corrupt_update
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.runtime.client import ClientRuntimeState
@@ -74,11 +79,16 @@ class _SchedulerBase:
         self.rcfg = rt.config
 
     # -- shared setup ------------------------------------------------------
-    def _setup(self, method: str):
+    def _setup(self, method: str, assign: bool = True):
+        """Shared run preamble.  ``assign=False`` skips the clustering
+        phase: a resumed run restores groups/div/trust (and the channels
+        the clustering built) from its checkpoint instead."""
         fc = self.fc
         rng = np.random.default_rng(fc.seed + 5)
-        with tm.span("profile", method=method):
-            groups, div, trust = self.fed._assign_groups(method, rng)
+        groups = div = trust = None
+        if assign:
+            with tm.span("profile", method=method):
+                groups, div, trust = self.fed._assign_groups(method, rng)
         iters = {n: CountingIterator(
                      infinite_batches(self.fed.data[n].tokens,
                                       self.fed.data[n].labels,
@@ -178,19 +188,20 @@ class SyncScheduler(_SchedulerBase):
     update, no loss, and the barrier does not wait for it (the edge
     times it out); drops train and count toward the barrier but the
     uplink is lost; dups fold the update twice; corruptions mangle it
-    in flight.
+    in flight.  This is the only policy supporting checkpoint/resume: at a
+    global-round boundary the whole scheduler state is in (theta,
+    server_state, rng, iterator cursors, dispatch counters, clock), which
+    :mod:`repro_torch.checkpoint.federation` serializes.
     """
 
     def run(self, method: str, global_rounds: int, steps_per_round: int,
             eval_every: int, log: bool, checkpoint=None,
             resume_from: Optional[str] = None) -> Dict:
-        if checkpoint is not None or resume_from is not None:
-            raise _not_ported("run(checkpoint=)/run(resume_from=) on the "
-                              "sync runtime: checkpoints", "queue 5")
+        from repro_torch.checkpoint import federation as fedckpt
         fed, fc = self.fed, self.fc
         use_split_dyn = method not in ("elsa-fixed",)
         rng, groups, div, trust, iters, server_opt, server_state = \
-            self._setup(method)
+            self._setup(method, assign=resume_from is None)
         history = {"round": [], "time": [], "accuracy": [], "loss": [],
                    "delta": []}
         client_losses: Dict[int, List[float]] = {
@@ -198,8 +209,26 @@ class SyncScheduler(_SchedulerBase):
         theta = fed.lora0
         t_global = 0.0
         disp = {n: 0 for n in range(fc.n_clients)}  # fault cursors
+        start_round, last_delta = 0, float("inf")
 
-        for g in range(global_rounds):
+        if resume_from is not None:
+            state = fedckpt.load_state(fedckpt.resolve(resume_from))
+            res = fedckpt.restore_run(fed, state, method=method,
+                                      steps_per_round=steps_per_round,
+                                      iters=iters, rng=rng)
+            groups, div, trust = res.groups, res.div, res.trust
+            theta, server_state = res.theta, res.server_state
+            history, client_losses = res.history, res.client_losses
+            start_round, last_delta = res.round_idx + 1, res.delta
+            t_global = res.t_global
+            disp.update(res.dispatches)
+            if res.trace_records is not None:
+                self.trace.records = list(res.trace_records)
+            if last_delta <= fc.xi or t_global >= self.rcfg.max_sim_s:
+                return self._finish_history(history, theta, client_losses)
+        ckpt = fedckpt.Checkpointer(checkpoint) if checkpoint else None
+
+        for g in range(start_round, global_rounds):
             edge_thetas, edge_alphas, losses = {}, {}, []
             edge_done = {}
             for k, members in groups.items():
@@ -300,6 +329,15 @@ class SyncScheduler(_SchedulerBase):
             if g % eval_every == 0 or g == global_rounds - 1:
                 self._record_eval(history, g, t_global, theta, losses,
                                   delta, log, f"sync/{method}")
+            if ckpt is not None and ckpt.due(g, global_rounds - 1, delta,
+                                             fc.xi):
+                ckpt.save(g, fedckpt.build_state(
+                    fed, method=method, steps_per_round=steps_per_round,
+                    round_idx=g, theta=theta, server_state=server_state,
+                    rng=rng, iters=iters, history=history,
+                    client_losses=client_losses, groups=groups, div=div,
+                    trust=trust, delta=delta, t_global=t_global,
+                    dispatches=disp, trace_records=self.trace.records))
             tm.end_round(g, sim_time_s=t_global)
             if delta <= fc.xi or t_global >= self.rcfg.max_sim_s:
                 break
@@ -480,7 +518,7 @@ class DeadlineScheduler(_SchedulerBase):
             tm.inc("runtime.stragglers", n_late)
         with tm.span("edge_agg", round=g, edge=k, n_updates=len(upds)), \
                 torch.no_grad():
-            if upds:
+            if self.fc.screen and upds:
                 upds, wts = fed.screen_cohort(senders, upds, wts, theta_k)
             # partial participation: the current edge model stands in for
             # the cohort mass that did NOT report this window, so a lone
@@ -497,8 +535,8 @@ class DeadlineScheduler(_SchedulerBase):
             elif upds:
                 theta_k = agg.aggregate_adapters(upds, wts,
                                                  mode=self.fc.aggregate)
-            # else: every uplink this window was lost; the edge keeps its
-            # model
+            # else: every uplink this window was lost or screened out;
+            # the edge keeps its model
         self.trace.log(deadline, EDGE_AGG, -1, k, round=g,
                        n_updates=len(upds), n_stragglers=n_late)
         edge_round_idx[k] = r_idx + 1
@@ -603,6 +641,23 @@ class AsyncScheduler(_SchedulerBase):
                     folds = 0   # trained, but the uplink was lost
                 elif fault is not None and fault.kind == "dup":
                     folds = 2   # delivered (and folded) twice
+                if fc.screen and folds:
+                    # no cohort to median against here: each arrival is
+                    # screened alone (the finite check) and discounted by
+                    # its client's trust; the norm and direction screens
+                    # need the cohorts of the sync and deadline paths
+                    fin, _, _ = screen_stats(edge_theta[k], [lora_n], [1.0])
+                    ok = bool(fin[0])
+                    fed.trust_ledger.record(n, ok)
+                    score = float(fed.trust_ledger.scores[n])
+                    if not ok or score < fed.screening.trust_floor:
+                        folds = 0
+                    if tm.enabled():
+                        v = NONFINITE if not ok else \
+                            (OK if folds else LOW_TRUST)
+                        tm.inc("screening.verdicts", 1, verdict=v)
+                    if folds:
+                        w = min(1.0, w * score)
                 for _ in range(folds):
                     edge_theta[k] = _mix(edge_theta[k], lora_n, w,
                                          mode=fc.aggregate)

@@ -1,5 +1,5 @@
-"""Telemetry: counters, histograms, spans and round markers, one ``None``
-check each while disabled.
+"""Telemetry: counters, gauges, histograms, spans and round markers, one
+``None`` check each while disabled.
 
 The subset of the JAX package's ``repro/telemetry`` that the port's paths
 use: :mod:`repro_torch.serving` (``serving.requests``, ``serving.tokens``,
@@ -7,11 +7,16 @@ use: :mod:`repro_torch.serving` (``serving.requests``, ``serving.tokens``,
 round loop (:func:`span` around its phases, :func:`end_round`) and the
 event runtime (``runtime.events{kind=...}``, the ``runtime.sim.*``
 seconds and wire bytes, ``runtime.stragglers``, and each round's
-simulated end, ``end_round(..., sim_time_s=)``).  While enabled, a span's
-wall time goes to the histogram ``span_s{span=...}``, each round end
-counts in ``rounds`` and its simulated end is kept by round in
-``sim_time_s``; the JAX package's span records, gauges and exports wait
-for ROADMAP.md, queue 6::
+simulated end, ``end_round(..., sim_time_s=)``), update screening
+(``screening.verdicts{verdict=...}``, ``screening.fallbacks{kind=...}``
+and the trust ledger's gauges ``screening.trust_mean``,
+``screening.trust_min`` and ``screening.below_floor``) and the federation
+checkpoints (``checkpoint.save_s``/``restore_s``, ``checkpoint.saves``/
+``restores``, ``checkpoint.bytes_written``/``bytes_read``).  While
+enabled, a span's wall time goes to the histogram ``span_s{span=...}``,
+each round end counts in ``rounds`` and its simulated end is kept by round
+in ``sim_time_s``; a gauge keeps the last value set.  The JAX package's
+span records and exports wait for ROADMAP.md, queue 6::
 
     from repro_torch import telemetry as tm
 
@@ -29,8 +34,8 @@ from repro_torch.telemetry.collector import (DEFAULT_TIME_BUCKETS, Histogram,
                                              Telemetry, flat_key)
 
 __all__ = ["DEFAULT_TIME_BUCKETS", "Histogram", "Telemetry", "flat_key",
-           "enabled", "enable", "disable", "get", "inc", "observe",
-           "span", "end_round", "summary"]
+           "enabled", "enable", "disable", "get", "inc", "set_gauge",
+           "observe", "span", "end_round", "summary"]
 
 _active: Optional[Telemetry] = None
 
@@ -60,6 +65,12 @@ def inc(name: str, value: float = 1.0, **labels: Any) -> None:
     t = _active
     if t is not None:
         t.inc(name, value, **labels)
+
+
+def set_gauge(name: str, value: float, **labels: Any) -> None:
+    t = _active
+    if t is not None:
+        t.set_gauge(name, value, **labels)
 
 
 def observe(name: str, value: float,

@@ -1,5 +1,5 @@
-"""Process-wide metrics registry: counters, fixed-bucket histograms and
-each round's simulated end.
+"""Process-wide metrics registry: counters, gauges, fixed-bucket
+histograms and each round's simulated end.
 
 The part of the JAX package's ``repro/telemetry/collector.py`` that the
 port's paths use, copied so that the port imports nothing of ``repro``.
@@ -58,17 +58,21 @@ class Histogram:
 
 
 class Telemetry:
-    """One run's worth of counters and histograms."""
+    """One run's worth of counters, gauges and histograms."""
 
     def __init__(self, meta: Optional[Dict[str, Any]] = None):
         self.meta = dict(meta or {})
         self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, float] = {}      # last value set
         self.histograms: Dict[str, Histogram] = {}
         self.sim_time_s: Dict[int, float] = {}   # round -> simulated end
 
     def inc(self, name: str, value: float = 1.0, **labels: Any) -> None:
         k = flat_key(name, labels)
         self.counters[k] = self.counters.get(k, 0.0) + float(value)
+
+    def set_gauge(self, name: str, value: float, **labels: Any) -> None:
+        self.gauges[flat_key(name, labels)] = float(value)
 
     def observe(self, name: str, value: float,
                 buckets: Optional[Sequence[float]] = None,
@@ -91,11 +95,15 @@ class Telemetry:
     def counter(self, name: str, **labels: Any) -> float:
         return self.counters.get(flat_key(name, labels), 0.0)
 
+    def gauge(self, name: str, **labels: Any) -> Optional[float]:
+        return self.gauges.get(flat_key(name, labels))
+
     def summary(self) -> Dict[str, Any]:
-        """Cumulative counters, histogram states and simulated round
-        ends."""
+        """Cumulative counters, the gauges' last values, histogram states
+        and simulated round ends."""
         return {"meta": dict(self.meta),
                 "counters": dict(self.counters),
+                "gauges": dict(self.gauges),
                 "histograms": {k: h.state()
                                for k, h in self.histograms.items()},
                 "sim_time_s": dict(self.sim_time_s)}

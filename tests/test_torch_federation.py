@@ -13,7 +13,6 @@ from the same initial LoRA the runs start from) are carried into the
 port's before the runs; ``semantic_subspace`` itself is held up to column
 signs in ``tests/test_torch_federation_parts.py``.
 """
-import json
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import restore as jax_restore
 from repro.federation.simulation import FedConfig as JaxFedConfig
 from repro.federation.simulation import Federation as JaxFederation
 from repro_torch import bridge
@@ -129,9 +129,11 @@ def test_run_matches_jax_x64(feds, method):
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
 
 
-def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        FedConfig(screen=True)
+def test_what_is_not_ported_raises(tmp_path):
+    # update screening and checkpoints are ported: FedConfig(screen=True)
+    # builds, and run(checkpoint=, resume_from=) works on the plain loop
+    # and the sync runtime; populations and meshes still raise
+    assert FedConfig(screen=True).screen
     kw = dict(n_clients=4, n_edges=2, layers=4, total_examples=200,
               probe_q=4)
     # the batched backend and the causal-LM split model are ported now
@@ -142,19 +144,23 @@ def test_what_is_not_ported_raises():
     assert Federation(FedConfig(model="llama3-8b", **kw),
                       device="cpu").model.task == "causal-lm"
     fed = Federation(FedConfig(**kw), device="cpu")
-    for opt, item in (("checkpoint", "queue 5"), ("resume_from", "queue 5"),
-                      ("population", "queue 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            fed.run("elsa", global_rounds=1, **{opt: object()})
-    # the event runtime is ported; its sync policy's checkpoints are not,
-    # and populations are not under any policy
+    from repro_torch.checkpoint import CheckpointConfig, latest_checkpoint
     from repro_torch.runtime import RuntimeConfig
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        fed.run("elsa", global_rounds=1, runtime=RuntimeConfig("sync"),
-                checkpoint=object())
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        fed.run("elsa", global_rounds=1, runtime=RuntimeConfig("sync"),
-                population=object())
+    for name, runtime in (("plain", None), ("sync", RuntimeConfig("sync"))):
+        ck = CheckpointConfig(dir=str(tmp_path / name))
+        hist = fed.run("elsa", global_rounds=1, steps_per_round=1,
+                       runtime=runtime, checkpoint=ck)
+        path = latest_checkpoint(ck.dir)
+        assert path.endswith("ckpt_round_000000.msgpack")
+        # resuming a finished run returns its history at once
+        again = Federation(FedConfig(**kw), device="cpu").run(
+            "elsa", global_rounds=1, steps_per_round=1, runtime=runtime,
+            resume_from=path)
+        assert again["accuracy"] == hist["accuracy"]
+        assert again["loss"] == hist["loss"]
+        with pytest.raises(NotImplementedError, match="queue 7"):
+            fed.run("elsa", global_rounds=1, runtime=runtime,
+                    population=object())
     with pytest.raises(ValueError, match="backend"):
         Federation(FedConfig(**kw), backend="eager", device="cpu")
 
@@ -181,6 +187,7 @@ def test_example_runs_one_round_on_cpu(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "phase 1: profiling 4 clients" in out.stdout
-    hist = json.loads((tmp_path / "elsa_history.json").read_text())
+    # written by the port's checkpoint.save, read by the JAX package's
+    hist = jax_restore(str(tmp_path / "elsa_history.msgpack"))
     assert hist["round"] == [0] and 0.0 <= hist["final_accuracy"] <= 1.0
     assert np.isfinite(hist["loss"]).all()

@@ -1,7 +1,9 @@
 """The port stands alone: nothing under ``src/repro_torch/`` (nor
 ``chip_smoke.py``, nor the port's examples ``examples/torch_*.py``)
-imports ``jax`` or the JAX package ``repro``, and its entry points run on
-the card unless the caller asks for the CPU."""
+imports ``jax``, the JAX package ``repro``, or ``msgpack`` and
+``ml_dtypes`` (which the machine with the card does not have: the port's
+checkpoints carry their own codec), and its entry points run on the card
+unless the caller asks for the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -12,7 +14,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _sources():

@@ -527,22 +527,38 @@ def test_async_full_methods_still_dispatch_everyone():
     assert dispatched == set(range(SMALL_KW["n_clients"]))
 
 
-def test_runtime_config_and_what_is_not_ported():
+def test_runtime_config_and_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="unknown runtime policy"):
         RuntimeConfig(policy="eager")
-    fed = Federation(FedConfig(n_clients=4, n_edges=2, layers=4,
-                               total_examples=200, probe_q=4), device="cpu")
+    kw = dict(n_clients=4, n_edges=2, layers=4, total_examples=200,
+              probe_q=4)
+    fed = Federation(FedConfig(**kw), device="cpu")
     rt = EdgeRuntime(fed, RuntimeConfig(policy="deadline"))
     assert rt.comm.lora_bytes == comm_model.lora_tree_bytes(fed.lora0) > 0
     assert rt.backhaul_s == rt.comm.lora_bytes / 1.25e9
     for policy in ("deadline", "async"):
-        with pytest.raises(ValueError, match="'sync' runtime policy only"):
-            fed.run("elsa", global_rounds=1,
-                    runtime=RuntimeConfig(policy=policy),
-                    checkpoint=object())
-    with pytest.raises(NotImplementedError, match="queue 5"):
+        for opt in ("checkpoint", "resume_from"):
+            with pytest.raises(ValueError,
+                               match="'sync' runtime policy only"):
+                fed.run("elsa", global_rounds=1,
+                        runtime=RuntimeConfig(policy=policy),
+                        **{opt: object()})
+    # the sync policy checkpoints and resumes: a fresh federation resumed
+    # from round 0 runs round 1 as the uninterrupted run did
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.checkpoint.federation import round_path
+    with pytest.raises(ValueError, match="no federation checkpoints"):
         fed.run("elsa", global_rounds=1, runtime=RuntimeConfig(),
-                resume_from="ckpt")
+                resume_from=str(tmp_path))
+    hist = fed.run("elsa", global_rounds=2, steps_per_round=1,
+                   runtime=RuntimeConfig(),
+                   checkpoint=CheckpointConfig(dir=str(tmp_path)))
+    resumed = Federation(FedConfig(**kw), device="cpu").run(
+        "elsa", global_rounds=2, steps_per_round=1, runtime=RuntimeConfig(),
+        resume_from=round_path(str(tmp_path), 0))
+    for key in ("round", "time", "accuracy", "loss", "delta"):
+        assert resumed[key] == hist[key], key
+    assert resumed["trace"] == hist["trace"]
     with pytest.raises(NotImplementedError, match="queue 7"):
         fed.run("elsa", global_rounds=1,
                 runtime=RuntimeConfig(policy="async"), population=object())

@@ -543,14 +543,21 @@ def test_train_step_rejects_what_is_not_ported(weights):
         torch_common.gqa_attention(q, k, v), rtol=0, atol=0)
 
 
-def test_main_trains_two_steps_on_cpu(capsys):
+def test_main_trains_two_steps_on_cpu(capsys, tmp_path):
     out = train._main(["--device", "cpu", "--elsa", "--steps", "2",
                        "--log-every", "1", "--batch", "2", "--seq", "16"])
     losses = [l for _, l in out["losses"]]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "olmo-1b (reduced)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        train._main(["--device", "cpu", "--steps", "1", "--ckpt", "x"])
+    # --ckpt writes the trained LoRA tree with save_state
+    from repro_torch.checkpoint import restore_state, tree_equal
+    path = str(tmp_path / "lora.msgpack")
+    out = train._main(["--device", "cpu", "--steps", "1", "--batch", "2",
+                       "--seq", "16", "--ckpt", path])
+    state = restore_state(path)
+    assert state["step"] == 1
+    assert tree_equal(state["params"], {"lora": out["lora"]})
+    assert f"saved LoRA checkpoint -> {path}" in capsys.readouterr().out
 
 
 def test_train_cli_defaults_to_cuda():
