@@ -7,7 +7,9 @@ default, batched backend and on the reference backend), the same
 federation on the event-driven edge runtime (``run(...,
 runtime=RuntimeConfig(policy=...))``), and the federation of a dense
 decoder (full-width olmo-1b), then the federation with update screening
-(``FedConfig(screen=True)``) and with full-state checkpoints and resumes.
+(``FedConfig(screen=True)``), with full-state checkpoints and resumes, and
+with registry-backed client populations (``run(population=
+PopulationConfig(...))``) inside telemetry sessions.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --channel-times-of CHECKOUT
@@ -30,9 +32,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    routes; then the cut sweep: the decode and the tile kernels, both
    checked and timed, at T 16 to 256;
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
-   against their plain versions, forward and backward, at olmo-1b's and the
-   federation's shapes and ragged ones, in bf16 and f32, each path's shapes
-   timed in its own type with bounds and a copy yardstick (and decompress
+   against their plain versions, forward and backward, at olmo-1b's, the
+   federation's and the causal-LM federation's shapes and ragged ones, in
+   bf16 and f32, each path's shapes timed in its own type (olmo-1b bf16,
+   the two federations f32) with bounds and a copy yardstick (and decompress
    beside a composite of library calls), the route of every call (the
    library's rule held against its Python twin), then the sweep of the
    tile routes' configurations (SS-OP's cluster size and rows a tile, the
@@ -104,6 +107,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    on the sync runtime with phase 14's screening and NaN trace (event
    trace and trust ledger too); deadline and async refuse ``checkpoint=``;
    the files' bytes and the save and restore times are reported;
+16. populations and telemetry: phase 10's federation (a) with the identity
+   population (``registered=8``) inside a telemetry session, history phase
+   10's bit for bit; (b) with 10^5 registered ids (uniform cohorts, seed
+   17, a population-sized churn trace, adapter shards of 8 float16 rows)
+   for 3 rounds of 4 steps streaming to a ``JsonlSink``: new online
+   cohorts, participations 3 x 8, one channel build an identity that
+   trained, a rebuilt identity channel bit-equal, the registry's memory
+   bounded by its touched shards, the file read back a record a round and
+   rendered by ``repro_torch.analysis.telemetry_report``; (c) ``deadline``
+   and ``async`` with 1,000 registered ids under phase 13's traces and a
+   1,000-client churn trace, every update written under a pinned
+   dispatch-time identity; (d) (b) for 2 rounds with a checkpoint a round,
+   resumed from round 0 by a new ``Federation`` bit for bit (history,
+   theta, registry columns and adapter shards).  Every ``run_clients`` call
+   launches phase 10's counts with 1 host sync; the registry's MiB, host
+   RSS, the wall a client step and the bookkeeping's host ms and syncs a
+   round are reported;
 10b. split-training parity: one ``split_loss`` gradient of bert-base at
    full width (f32, 4 layers) through the channel, kernel path against
    plain path, each block against its own f32-vs-f64 floor;
@@ -111,7 +131,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    registered as ``"olmo-1b-full"``, 4 clients on 2 edges, the launcher's
    8 x 64 stream, 2 rounds of 2 local steps on the default backend, with
    phase 10's launch check (16 blocks) and finite losses;
-11. every LoRA shape that phases 5, 8, 10, 10r, 13, 14, 15 and 12
+11. every LoRA shape that phases 5, 8, 10, 10r, 13, 14, 15, 16 and 12
    launched (recorded while they ran, with their pointers' alignment)
    against the plain version at phase 3's tolerances, so every kernel
    instantiation a path ran is held.
@@ -479,13 +499,17 @@ def _channel_work(op, T, D, r, Y, Z, dtype):
 
 # (case, T, D, r, Y, Z): olmo-1b's channel (the launcher's 8 x 64 tokens;
 # SS-OP r 16; Y 3, Z 325), the federation's (bert-base, 16 x 128 tokens; r 8;
-# Y 3, Z = max(4, int(768 / (2.1 * 3))) = 121) and ragged ones.  The two
-# paths' own shapes are timed in the type each path runs.
+# Y 3, Z = max(4, int(768 / (2.1 * 3))) = 121), the causal-LM federation's
+# (olmo-1b, 8 x 64 tokens; FedConfig's r 8; Y 3, Z = int(2048 / 6.3) = 325)
+# and ragged ones.  The paths' own shapes are timed in the type each path
+# runs; the tile sweep covers the first two.
 CHANNEL_CASES = [("train", 512, 2048, 16, 3, 325),
                  ("federation", 2048, 768, 8, 3, 121),
+                 ("causal-LM", 512, 2048, 8, 3, 325),
                  ("ragged Y4", 5, 2000, 16, 4, 37),
                  ("ragged Y5", 5, 2000, 16, 5, 37)]
-CHANNEL_TIMED = {("train", torch.bfloat16), ("federation", torch.float32)}
+CHANNEL_SWEPT = {("train", torch.bfloat16), ("federation", torch.float32)}
+CHANNEL_TIMED = CHANNEL_SWEPT | {("causal-LM", torch.float32)}
 
 
 def _channel_ops(T, D, r, Y, Z, dtype, g):
@@ -708,7 +732,7 @@ def channel_sweep():
     out = []
     for case, T, D, r, Y, Z in CHANNEL_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            if (case, dtype) not in CHANNEL_TIMED:
+            if (case, dtype) not in CHANNEL_SWEPT:
                 continue
             plan, uu, w, table = _channel_ops(T, D, r, Y, Z, dtype, g)
             el = torch.empty((), dtype=dtype).element_size()
@@ -2591,6 +2615,334 @@ def checkpoint_phase(phase10, phase14):
 
 
 # ---------------------------------------------------------------------------
+# 16. populations and telemetry
+# ---------------------------------------------------------------------------
+
+def _host_rss_mib():
+    """This process's resident host memory (MiB, ``VmRSS`` of
+    /proc/self/status; nan where the kernel does not report it) and its
+    peak (``getrusage``'s ``ru_maxrss``)."""
+    import resource
+    rss = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) / 1024
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def _population_fed(pop_cfg):
+    """Phase 10's federation on the card with a population of ``pop_cfg``
+    whose bookkeeping (``begin_round``, ``note_updates``, ``end_round``)
+    and identity channel builds are timed: each call's host ms and host
+    syncs go to ``log``, keyed by the round last begun (-1: the profile,
+    before round 0).  Also kept: each round's cohort, every pinned
+    identity, and each ``note_updates`` call's ids beside the slots'
+    occupants at the time.  Returns (federation, population, log,
+    record)."""
+    from repro_torch.population import PopulationRuntime
+    fed = Federation(_bert_fed_config(), device="cuda")
+    pop = PopulationRuntime(fed, pop_cfg)
+    log = []
+    rec = {"round": -1, "cohorts": [], "pins": [], "notes": []}
+
+    def timed(what, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out, syncs = _syncs_of(lambda: fn(*a, **kw))
+            log.append(dict(what=what, round=rec["round"],
+                            ms=(time.perf_counter() - t0) * 1e3,
+                            syncs=len(syncs), where=syncs))
+            return out
+        return wrapped
+
+    begin, note, pin = pop.begin_round, pop.note_updates, pop.pin
+
+    def begin_round(g, t=None):
+        rec["round"] = g
+        ids = begin(g, t=t)
+        rec["cohorts"].append([int(c) for c in ids])
+        return ids
+
+    def note_updates(slots, trees, base, ids=None):
+        occupants = [int(pop.slot_to_id[s]) for s in slots]
+        rec["notes"].append(dict(
+            ids=occupants if ids is None else [int(c) for c in ids],
+            occupants=occupants))
+        return note(slots, trees, base, ids=ids)
+
+    def pinned(slot):
+        rec["pins"].append(pin(slot))
+        return rec["pins"][-1]
+
+    pop.begin_round = timed("begin_round", begin_round)
+    pop.note_updates = timed("note_updates", note_updates)
+    pop.end_round = timed("end_round", pop.end_round)
+    pop.pin = pinned
+    fed._build_identity_channel = timed("channel_build",
+                                        fed._build_identity_channel)
+    return fed, pop, log, rec
+
+
+def _bookkeeping(log):
+    """Per round: calls, host ms and host syncs of each bookkeeping kind;
+    printed one line a round."""
+    out = {}
+    for e in log:
+        k = out.setdefault(e["round"], {}).setdefault(
+            e["what"], {"calls": 0, "ms": 0.0, "syncs": 0})
+        k["calls"] += 1
+        k["ms"] += e["ms"]
+        k["syncs"] += e["syncs"]
+    for g in sorted(out):
+        print(f"  bookkeeping, {'profile' if g < 0 else f'round {g}'}: "
+              + "; ".join(f"{k} {v['calls']}x {v['ms']:.2f} ms, "
+                          f"{v['syncs']} syncs"
+                          for k, v in sorted(out[g].items())), flush=True)
+    return out
+
+
+def _big_population(churn):
+    """Phase 16 (b)'s population: 10^5 registered ids, uniform cohorts
+    (seed 17) filtered by ``churn``, adapter shards of 8 float16 rows (a
+    full-width bert-base row is ~0.9 M floats)."""
+    from repro_torch.population import PopulationConfig
+    return PopulationConfig(registered=100_000, strategy="uniform", seed=17,
+                            churn=churn, shard_rows=8,
+                            adapter_dtype="float16")
+
+
+def population_phase(phase10):
+    """Registry-backed populations (``run(population=PopulationConfig(
+    ...))``) on phase 10's federation, with telemetry's round records.
+    (a) ``registered=8`` (the identity population) on the plain loop inside
+    a telemetry session: the history must be phase 10's bit for bit.
+    (b) ``registered=100_000`` (uniform, seed 17, a population-sized churn
+    trace, adapter shards of 8 float16 rows) for 3 rounds of 4 steps,
+    streaming to a ``JsonlSink``: each round's cohort new and online,
+    participations summing to 3 x 8, one channel build for each identity
+    that trained, an evicted identity's rebuilt channel bit-equal to its
+    first, the registry holding only the touched shards, and the file read
+    back with one record a round and rendered by the report.  (c)
+    ``deadline`` and ``async`` with ``registered=1_000`` under phase 13's
+    traces and a 1,000-client churn trace: every update written back under
+    an identity pinned at a dispatch.  (d) (b)'s configuration for 2
+    rounds with a checkpoint a round, resumed from round 0 by a new
+    ``Federation``: history, theta, registry columns and adapter shards bit
+    for bit.  In every run each ``run_clients`` call must launch phase 10's
+    counts and make 1 host sync.  Reports the registry's MiB and shards,
+    host RSS, the wall a client step, and the bookkeeping's host ms and
+    syncs a round."""
+    import tempfile
+
+    from repro_torch import telemetry as tm
+    from repro_torch.analysis.telemetry_report import render
+    from repro_torch.checkpoint import CheckpointConfig, tree_equal
+    from repro_torch.checkpoint import federation as fedckpt
+    from repro_torch.population import PopulationConfig
+    keys = ("round", "accuracy", "loss", "delta", "client_losses")
+    per_step = _per_step(_bert_fed_config().layers, remat=False)
+    n = _bert_fed_config().n_clients
+    out, launches = {}, {k: 0 for k in _counts()}
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the identity population, telemetry on
+    fed, pop, log, _ = _population_fed(PopulationConfig(registered=n))
+    with tm.session({"phase": "16a"}) as tel:
+        hist, wall, counts, calls = _counted_run(fed, per_step,
+                                                 population=pop)
+    add(counts)
+    _same_history(hist, phase10, keys, "16a: registered=8 vs phase 10")
+    check([r["round"] for r in tel.rounds] == [0, 1],
+          f"16a: round records {[r['round'] for r in tel.rounds]}")
+    check(pop.registry.participations.tolist() == [2] * n,
+          f"16a: participations {pop.registry.participations.tolist()}")
+    spans = sorted({s["name"] for r in tel.rounds for s in r["spans"]})
+    print(f"populations (a), registered={n}, telemetry on: history phase "
+          f"10's bit for bit; {len(calls)} run_clients calls, 1 host sync "
+          f"each, {_step_ms(calls[1:]):.2f} ms a client step; round records "
+          f"{[r['round'] for r in tel.rounds]}, spans {spans}")
+    out["a"] = dict(accuracy=hist["accuracy"], loss=hist["loss"],
+                    step_ms=_step_ms(calls[1:]), run_s=wall,
+                    launches=counts, spans=spans)
+    del fed, pop
+    torch.cuda.empty_cache()
+
+    # (b) 10^5 registered ids through the 8 slots, streamed to a JsonlSink
+    t0 = time.time()
+    churn = make_churn_trace(100_000, 1_000.0, mean_on_s=60.0,
+                             mean_off_s=20.0, churn_frac=0.5, seed=17,
+                             version=2)
+    churn_s = time.time() - t0
+    t0 = time.time()
+    fed, pop, log, rec = _population_fed(_big_population(churn))
+    bind_s = time.time() - t0
+    path = os.path.join(OUT_DIR, "population_telemetry.jsonl")
+    with tm.session({"phase": "16b"}, sink=tm.JsonlSink(path)):
+        hist, wall, counts, calls = _counted_run(
+            fed, per_step, rounds=3, steps=4, population=pop)
+    add(counts)
+    reg, cohorts = pop.registry, rec["cohorts"]
+    check(len(cohorts) == 3 and all(len(set(c)) == n for c in cohorts)
+          and len({c for ids in cohorts for c in ids}) == 3 * n,
+          f"16b: cohorts {cohorts}")
+    check(all(churn.is_online(c, 0.0) for ids in cohorts for c in ids),
+          f"16b: an offline id was sampled: {cohorts}")
+    check(int(reg.participations.sum()) == 3 * n,
+          f"16b: participations sum {int(reg.participations.sum())}")
+    trained = {c for nt in rec["notes"] for c in nt["ids"]}
+    builds = [e for e in log if e["what"] == "channel_build"]
+    profile_builds = sum(e["round"] < 0 for e in builds)
+    check(profile_builds == n and pop._chan_misses == len(builds)
+          and len(builds) - n == len(trained - set(range(n)))
+          and pop._chan_evictions == 0,
+          f"16b: {len(builds)} channel builds ({profile_builds} at the "
+          f"profile) for {len(trained)} ids that trained")
+    run_log = list(log)                       # the run's bookkeeping
+    cid = cohorts[0][0]                       # evict one identity, rebuild
+    first = pop._channels.pop(cid)
+    again = pop.channel_for_id(cid)
+    check(again is not first and torch.equal(again.ssop.u, first.ssop.u)
+          and torch.equal(again.ssop.v, first.ssop.v),
+          f"16b: identity {cid}'s rebuilt channel differs")
+    shard_bytes = pop.cfg.shard_rows * pop.adapter_dim * 2
+    columns = sum(c.nbytes for c in reg.columns.values())
+    check(0 < reg.allocated_shards <= len(trained)
+          and reg.nbytes == columns + reg.allocated_shards * shard_bytes,
+          f"16b: {reg.allocated_shards} shards, {reg.nbytes} bytes")
+    data = tm.read_jsonl(path)
+    check([r["round"] for r in data["rounds"]] == [0, 1, 2],
+          f"16b: the JSONL's rounds {[r['round'] for r in data['rounds']]}")
+    report = render(data, show_rounds=True)
+    check(report.startswith("telemetry summary (3 rounds")
+          and "local_steps" in report, f"16b: report {report[:300]}")
+    rss, hwm = _host_rss_mib()
+    step_ms = _step_ms(calls[1:])
+    print(f"populations (b), registered=100,000 (churn trace built in "
+          f"{churn_s:.2f}s, federation and registry in {bind_s:.2f}s): "
+          f"cohorts {cohorts}; accuracy {hist['accuracy']}, loss "
+          f"{[round(x, 4) for x in hist['loss']]}")
+    print(f"  registry {reg.nbytes / 2 ** 20:.2f} MiB: columns "
+          f"{columns / 2 ** 20:.2f} MiB + {reg.allocated_shards} of "
+          f"{reg.n_shards} adapter shards x {shard_bytes / 2 ** 20:.2f} MiB "
+          f"(adapter_dim {pop.adapter_dim}); host RSS {rss:.0f} MiB (peak "
+          f"{hwm:.0f}); {len(calls)} run_clients calls, 1 host sync each, "
+          f"{step_ms:.2f} ms a client step; {len(builds)} channel builds "
+          f"({profile_builds} at the profile) for {len(trained)} ids that "
+          f"trained; rebuilt channel of id {cid} bit-equal")
+    book = _bookkeeping(run_log)
+    print("  " + report.replace("\n", "\n  "), flush=True)
+    out["b"] = dict(cohorts=cohorts, accuracy=hist["accuracy"],
+                    loss=hist["loss"], registry_bytes=reg.nbytes,
+                    column_bytes=columns, shards=reg.allocated_shards,
+                    n_shards=reg.n_shards, shard_bytes=shard_bytes,
+                    adapter_dim=pop.adapter_dim, rss_mib=rss, hwm_mib=hwm,
+                    step_ms=step_ms, run_s=wall, launches=counts,
+                    channel_builds=len(builds),
+                    profile_builds=profile_builds, trained=len(trained),
+                    bookkeeping=book, churn_build_s=churn_s, bind_s=bind_s,
+                    calls=calls)
+    del fed, pop
+    torch.cuda.empty_cache()
+
+    # (c) deadline and async with 1,000 registered ids
+    slot_churn = make_churn_trace(n, 10_000.0, mean_on_s=40.0,
+                                  mean_off_s=15.0, churn_frac=0.5, seed=2)
+    faults = make_fault_trace(n, faulty_frac=0.5, crash_rate=0.1,
+                              drop_rate=0.1, dup_rate=0.1, corrupt_rate=0.1,
+                              corrupt_modes=("signflip", "scale"), seed=3)
+    pop_churn = make_churn_trace(1_000, 10_000.0, mean_on_s=40.0,
+                                 mean_off_s=15.0, churn_frac=0.5, seed=2)
+    for policy in ("deadline", "async"):
+        fed, pop, log, rec = _population_fed(PopulationConfig(
+            registered=1_000, seed=17, churn=pop_churn))
+        hist, wall, counts, calls = _counted_run(
+            fed, per_step, population=pop, runtime=RuntimeConfig(
+                policy, churn=slot_churn, faults=faults))
+        add(counts)
+        _trace_consistent(hist["trace"], n, len(hist["round"]))
+        pins = set(rec["pins"])
+        noted = [c for nt in rec["notes"] for c in nt["ids"]]
+        moved = sum(c != o for nt in rec["notes"]
+                    for c, o in zip(nt["ids"], nt["occupants"]))
+        check(noted and set(noted) <= pins,
+              f"16c {policy}: updates written under ids never dispatched: "
+              f"{sorted(set(noted) - pins)}")
+        reg = pop.registry
+        print(f"populations (c), {policy}, registered=1,000: rounds "
+              f"{hist['round']}, simulated time "
+              f"{[round(x, 3) for x in hist['time']]}, loss "
+              f"{[round(x, 4) for x in hist['loss']]}, cohorts "
+              f"{rec['cohorts']}; {len(calls)} run_clients calls, 1 host "
+              f"sync each, {_step_ms(calls[1:]):.2f} ms a client step; "
+              f"{len(pins)} ids dispatched, {len(noted)} updates written "
+              f"back, {moved} of them under a pinned id that no longer held "
+              f"its slot; trace {hist['trace'].summary()}")
+        book = _bookkeeping(log)
+        out[f"c {policy}"] = dict(
+            round=hist["round"], time=hist["time"], loss=hist["loss"],
+            cohorts=rec["cohorts"], step_ms=_step_ms(calls[1:]),
+            run_s=wall, launches=counts, dispatched=len(pins),
+            noted=len(noted), moved=moved,
+            trace_summary=hist["trace"].summary(), bookkeeping=book)
+        del fed, pop
+        torch.cuda.empty_cache()
+
+    # (d) (b)'s population checkpointed each round, resumed by a new
+    # Federation from round 0
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        fed, pop, _, _ = _population_fed(_big_population(churn))
+        tel = tm.enable()
+        try:
+            hist, wall, counts, calls = _counted_run(
+                fed, per_step, population=pop,
+                checkpoint=CheckpointConfig(dir=tmp, every=1, keep=2))
+        finally:
+            tm.disable()
+        add(counts)
+        theta, reg = fed.last_theta, pop.registry
+        sizes = [os.path.getsize(f) for f in fedckpt.list_checkpoints(tmp)]
+        save_h = tel.histograms["checkpoint.save_s"]
+        del fed, pop
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        fed, pop, _, _ = _population_fed(_big_population(churn))
+        res, wall_r, counts_r, calls_r = _counted_run(
+            fed, per_step, population=pop,
+            resume_from=fedckpt.round_path(tmp, 0))
+        resume_s = time.time() - t0
+        add(counts_r)
+        _same_history(res, hist, keys, "16d: resumed vs uninterrupted")
+        check(tree_equal(fed.last_theta, theta),
+              "16d: the resumed final theta differs")
+        for name, col in reg.columns.items():
+            check(col.tobytes() == pop.registry.columns[name].tobytes(),
+                  f"16d: registry column {name} differs after the resume")
+        a, b = reg.state()["adapter_shards"], \
+            pop.registry.state()["adapter_shards"]
+        check([i for i, _ in a] == [i for i, _ in b]
+              and all(x.tobytes() == y.tobytes()
+                      for (_, x), (_, y) in zip(a, b)),
+              "16d: adapter shards differ after the resume")
+        print(f"populations (d), registered=100,000, a checkpoint a round: "
+              f"files {sizes} bytes, save {save_h.sum / save_h.count:.3f} s "
+              f"a file; a new Federation resumed from round 0 in "
+              f"{resume_s:.1f}s ({len(calls_r)} run_clients calls): history, "
+              f"theta, {len(reg.columns)} registry columns and {len(a)} "
+              f"adapter shards bit-equal", flush=True)
+        out["d"] = dict(file_bytes=sizes, save_s=save_h.sum / save_h.count,
+                        run_s=wall, resume_s=resume_s, shards=len(a),
+                        launches=counts, resumed_launches=counts_r)
+        del fed, pop
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # 10b. split-training parity at full width
 # ---------------------------------------------------------------------------
 
@@ -2847,6 +3199,9 @@ def main():
         screening, screening_launches = screening_phase()
     with phase("15 checkpoints"), _recording_lora_calls(path_calls):
         ckpts, ckpt_launches = checkpoint_phase(federation, screening)
+    with phase("16 populations and telemetry"), \
+            _recording_lora_calls(path_calls):
+        populations, population_launches = population_phase(federation)
     with phase("10b split-training parity"):
         s_parity = split_parity_phase()
     with phase("12 causal-LM federation"), _recording_lora_calls(path_calls):
@@ -2869,6 +3224,7 @@ def main():
                "runtime": runtime_launches[name],
                "screening": screening_launches[name],
                "checkpoints": ckpt_launches[name],
+               "populations": population_launches[name],
                "causal-LM federation": causal_launches[name]}
         if name == "lora_matmul":
             out = {"serve": serve_launches, **out}
@@ -2907,13 +3263,19 @@ def main():
         b = pick(name, bwd)
         fed = {op: pick(name, op, "federation", "float32")
                for op in (fwd, bwd)}
+        clm = {op: pick(name, op, "causal-LM", "float32")
+               for op in (fwd, bwd)}
         row.update(shape=f"{fwd}, T=512 D=2048 r=16 Y=3 Z=325 bfloat16",
                    launches_by_path=by_path(name),
                    backward={k: b[k] for k in timed} | {"op": bwd},
                    at_federation_shape={
                        op: {k: r_[k] for k in timed}
                        for op, r_ in fed.items()} | {
-                       "shape": "T=2048 D=768 r=8 Y=3 Z=121 float32"})
+                       "shape": "T=2048 D=768 r=8 Y=3 Z=121 float32"},
+                   at_causal_lm_shape={
+                       op: {k: r_[k] for k in timed}
+                       for op, r_ in clm.items()} | {
+                       "shape": "T=512 D=2048 r=8 Y=3 Z=325 float32"})
         row["copy_ms"] = pick(name, fwd)["copy_ms"]
         row["bytes_copy_ms"] = pick(name, fwd)["bytes_copy_ms"]
         if name == "sketch_gather":   # the composite of three library calls
@@ -2957,6 +3319,7 @@ def main():
                    "federation_reference": fed_ref,
                    "cross_backend_step": cross, "runtime": runtime,
                    "screening": screening, "checkpoints": ckpts,
+                   "populations": populations,
                    "split_parity": s_parity,
                    "causal_lm_federation": causal,
                    **record}, f, indent=1, default=str)

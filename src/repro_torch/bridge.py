@@ -52,7 +52,7 @@ def _tree_to_torch(tree, device, dtype):
 def _unstack(tree, i):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+    return tree[i]
 
 
 def _n_layers(tree):
@@ -64,7 +64,7 @@ def _n_layers(tree):
             if n is not None:
                 return n
         return None
-    return np.asarray(tree).shape[0]
+    return tree.shape[0]
 
 
 def _from_jax(tree, device, dtype):
@@ -107,6 +107,8 @@ def _tree_to_numpy(tree):
 def _stack(layers):
     if isinstance(layers[0], dict):
         return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    if isinstance(layers[0], torch.Tensor):
+        return torch.stack(layers)
     return np.stack(layers)
 
 
@@ -140,3 +142,57 @@ def opt_state_to_jax_numpy(state):
     """The inverse of :func:`opt_state_from_jax_numpy`."""
     return {"step": _to_numpy(state["step"]), "m": _to_jax(state["m"]),
             "v": _to_jax(state["v"])}
+
+
+def _sorted_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _sorted_leaves(tree[k])]
+    return [tree]
+
+
+def jax_leaf_order(tree):
+    """The leaves of one of the port's parameter trees, listed so that
+    their flattened concatenation is ``jax.tree_util.tree_leaves`` of the
+    JAX package's tree flattened: dict keys sorted, and each stacked
+    ``blocks`` leaf as its layers in turn (layer-major).  The population
+    registry lays out its adapter rows this way, so the two packages'
+    rows compare element by element."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if k == "blocks" and isinstance(v, list):
+            per_layer = [_sorted_leaves(layer) for layer in v]
+            out += [layer[j] for j in range(len(per_layer[0]))
+                    for layer in per_layer]
+        else:
+            out += _sorted_leaves(v)
+    return out
+
+
+def stack_blocks(tree):
+    """A tree in the port's layout (``"blocks"`` a list of per-layer
+    dicts, at any depth) -> the JAX package's (each ``"blocks"`` leaf
+    stacked on a leading layer axis); tensors stay tensors."""
+    if isinstance(tree, dict):
+        return {k: (_stack(v) if k == "blocks"
+                    and isinstance(v, list) and v else stack_blocks(v))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(stack_blocks(v) for v in tree)
+    return tree
+
+
+def unstack_blocks(tree):
+    """The inverse of :func:`stack_blocks`; a tree already in the port's
+    layout passes through."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            n = _n_layers(v) if k == "blocks" and isinstance(v, dict) \
+                else None
+            out[k] = ([_unstack(v, i) for i in range(n)] if n is not None
+                      else unstack_blocks(v))
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unstack_blocks(v) for v in tree)
+    return tree

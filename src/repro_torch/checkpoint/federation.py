@@ -16,9 +16,10 @@ back on the federation's device.
 
 Writes are atomic (:func:`repro_torch.checkpoint.checkpoint.save` renames
 a temp file into place) and rolling: :class:`Checkpointer` keeps the
-newest ``keep`` round snapshots and prunes the rest.  Registry-backed
-populations are not ported (ROADMAP.md, queue 7): the ``population``
-section is written as ``None``.
+newest ``keep`` round snapshots and prunes the rest.  With a bound
+registry-backed population the ``population`` section holds its state
+(:meth:`repro_torch.population.PopulationRuntime.state`: the registry's
+columns and adapter shards, the slot map and the identity channels).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry as tm
+from repro_torch.bridge import stack_blocks, unstack_blocks
 from repro_torch.checkpoint.checkpoint import restore, save
 
 FORMAT = "elsa-federation"
@@ -153,14 +155,20 @@ def build_state(fed, *, method: str, steps_per_round: int, round_idx: int,
     MessagePack's 64-bit integers, hence the JSON string).  ``iters`` are
     the per-client :class:`~repro_torch.data.pipeline.CountingIterator`
     streams; only their draw counts are stored, the resumed process
-    rebuilds the same seeded streams and fast-forwards.  ``channels``
+    rebuilds the same seeded streams and fast-forwards.  ``theta`` and the
+    server state are written in the JAX package's layout (each ``blocks``
+    leaf stacked on a layer axis), so either package resumes from the
+    other's files; :func:`restore_run` reads both layouts.  ``channels``
     carries each client's SS-OP ``u``, ``v`` and the JAX package's fused
     ``w = Vᵀ - I``, ``w_inv = V - I`` (the port derives those from ``v``
     and reads only ``u`` and ``v`` back).  The edge groups keep their
     iteration order (an escalated group ``-1`` comes last), so a resumed
     run visits the edges, and sums their losses, in the same order.
-    ``population`` is always ``None`` here: ``run(population=)`` is not
-    ported (ROADMAP.md, queue 7).
+    With a bound ``population`` the registry carries the draw cursors
+    instead (slots have no fixed occupant), so ``draws`` is stored empty
+    and the population's state rides in the ``population`` section;
+    its identity-keyed channels live there too, so the slot-keyed
+    ``channels`` section is empty.
     """
     ssops = []
     for n in sorted(fed._channels):
@@ -180,19 +188,21 @@ def build_state(fed, *, method: str, steps_per_round: int, round_idx: int,
         "method": method, "steps_per_round": int(steps_per_round),
         "round": int(round_idx), "t_global": float(t_global),
         "delta": float(delta),
-        "theta": theta, "server_state": server_state,
+        "theta": stack_blocks(theta),
+        "server_state": stack_blocks(server_state),
         "groups": [[int(k), [int(n) for n in ms]]
                    for k, ms in groups.items()],
         "div": np.asarray(div), "trust": np.asarray(trust),
         "ledger": fed.trust_ledger.state(),
         "rng_state": json.dumps(rng.bit_generator.state),
-        "draws": _pairs({n: it.count for n, it in iters.items()}),
+        "draws": _pairs({} if population is not None
+                        else {n: it.count for n, it in iters.items()}),
         "dispatches": _pairs(dispatches or {}),
         "channels": ssops,
         "history": hist,
         "client_losses": _pairs(client_losses),
         "trace": list(trace_records) if trace_records is not None else None,
-        "population": None,
+        "population": None if population is None else population.state(),
     }
 
 
@@ -234,8 +244,13 @@ def restore_run(fed, state: Dict, *, method: str, steps_per_round: int,
     and each client's ``iters`` stream is fast-forwarded to its saved
     draw count.  Raises ``ValueError`` when the checkpoint was written
     under a different config/method (a resumed run must continue the
-    *same* experiment) or carries a population, or a population is bound
-    here, which the port does not have yet.
+    *same* experiment).
+
+    ``population`` must match the checkpoint: a snapshot written with a
+    bound :class:`~repro_torch.population.PopulationRuntime` restores its
+    registry (which carries the per-id draw cursors in place of the
+    slot-keyed ``draws`` section) and its identity channels, and refuses
+    to resume without one, and vice versa.
     """
     from repro_torch.core.split_training import Channel
     from repro_torch.core.ssop import SSOP
@@ -263,23 +278,33 @@ def restore_run(fed, state: Dict, *, method: str, steps_per_round: int,
             + " a registry-backed population, this resume runs "
             + ("without" if population is None else "with") + " one")
     rng.bit_generator.state = json.loads(state["rng_state"])
-    for n, count in _unpairs(state["draws"]).items():
-        iters[n].fast_forward(int(count))
+    if population is not None:
+        population.load_state(pop_state)
+    else:
+        for n, count in _unpairs(state["draws"]).items():
+            iters[n].fast_forward(int(count))
     device = fed.device
     plan = fed.plan if fed.fed.use_channel else None
     fed._channels.clear()
     for n, ss in state["channels"]:
         ssop = None if ss is None else SSOP(
             u=_to_device(ss["u"], device), v=_to_device(ss["v"], device))
-        fed._channels[int(n)] = Channel(ssop, plan)
+        if population is not None:
+            # a population snapshot with slot-keyed channels: those were
+            # built at profile time, when slot n held identity n, so
+            # adopting them identity-keyed is exact
+            population.adopt_channel(int(n), Channel(ssop, plan))
+        else:
+            fed._channels[int(n)] = Channel(ssop, plan)
     if state["ledger"] is not None:
         fed.trust_ledger.load_state(state["ledger"])
     return SimpleNamespace(
         round_idx=int(state["round"]),
         t_global=float(state["t_global"]),
         delta=float(state["delta"]),
-        theta=_to_device(state["theta"], device),
-        server_state=_to_device(state["server_state"], device),
+        theta=_to_device(unstack_blocks(state["theta"]), device),
+        server_state=_to_device(unstack_blocks(state["server_state"]),
+                                device),
         groups=_unpairs(state["groups"]),
         div=np.asarray(state["div"]),
         trust=np.asarray(state["trust"]),

@@ -38,9 +38,9 @@ package leaves them to XLA, and one transfer to the host).
 
 Not ported: ``mesh=`` (the multi-GPU engine, ROADMAP.md queue 8) raises;
 ``compile_cache_sizes`` and the engine's gauges and compile counter
-(queue 6 and the graph capture) wait, and the JAX placement helpers
-(``placement_platform``, ``donate_buffers``) have ``device`` as their
-counterpart.
+wait for the graph capture (ROADMAP.md queue 2 item 11), and the JAX
+placement helpers (``placement_platform``, ``donate_buffers``) have
+``device`` as their counterpart.
 """
 from __future__ import annotations
 

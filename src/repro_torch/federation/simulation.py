@@ -22,9 +22,13 @@ and async policies over a simulated clock, with churn and fault traces).
 aggregates them and keeps a live trust EMA per client
 (:mod:`repro_torch.core.screening`); ``run(checkpoint=, resume_from=)``
 snapshots the whole federation state each round and resumes a killed run
-bit-identically (:mod:`repro_torch.checkpoint.federation`).  Not ported
+bit-identically (:mod:`repro_torch.checkpoint.federation`);
+``run(population=PopulationConfig(registered=N))`` streams a registered
+population of ``N`` client identities through the ``n_clients`` slots, a
+sampled cohort a round, each identity with its own data, batch stream,
+trust and SS-OP rotation (:mod:`repro_torch.population`).  Not ported
 yet, and raising ``NotImplementedError`` that names the ROADMAP.md item:
-``mesh=`` (queue 8) and ``run(population=)`` (queue 7).
+``mesh=`` (queue 8).
 
 Entry points take ``device`` and default to ``"cuda"``; the CPU runs only
 when a caller passes ``device="cpu"``.
@@ -48,7 +52,8 @@ from repro_torch.core.screening import (ScreeningConfig, TrustLedger,
 from repro_torch.core.sketch import make_plan
 from repro_torch.core.split_training import (Channel, Split, loss_and_grad,
                                              split_loss)
-from repro_torch.core.ssop import make_ssop
+from repro_torch.core.ssop import (make_ssop, make_ssop_from_basis,
+                                   semantic_subspace)
 from repro_torch.core.trust import trust_scores
 from repro_torch.data.pipeline import CountingIterator, infinite_batches
 from repro_torch.data.probe import make_probe_set
@@ -205,7 +210,11 @@ class Federation:
         z = fed.sketch_z or max(4, int(d / (fed.rho * fed.sketch_y)))
         self.plan = make_plan(d, fed.sketch_y, z, seed=fed.seed + 11,
                               device=self.device)
+        # identity-keyed channels (identity == slot without a bound
+        # population; with one, channel_for routes through the
+        # population's identity LRU and this dict stays empty)
         self._channels: Dict[int, Channel] = {}
+        self._ref_basis = None
         self._engine: Optional[BatchedEngine] = None
 
         self.screening = ScreeningConfig(
@@ -216,8 +225,8 @@ class Federation:
         self.trust_ledger = TrustLedger(fed.n_clients,
                                         beta=fed.screen_trust_beta)
         self.screen_log: List = []           # one ScreenReport a pass
-        # a registry-backed population would be bound here by
-        # run(population=), which is not ported (queue 7)
+        # registry-backed population binding, installed by
+        # run(population=) and the runtime schedulers
         self._population = None
 
     @property
@@ -255,24 +264,49 @@ class Federation:
                 else self._default_split())
 
     def client_weight(self, client: int) -> int:
-        """FedAvg weight: the client's example count."""
+        """FedAvg weight: the example count of the client currently
+        occupying slot ``client`` (with a bound population the occupant
+        is whatever registered id the round's cohort mapped there)."""
+        if self._population is not None:
+            return self._population.slot_weight(client)
         return len(self.data[client].tokens)
 
     def _bind_population(self, population):
-        """Attach a registry-backed population for this run: ``None``
-        detaches (the only path ported); any other value raises."""
-        if population is not None:
-            raise _not_ported("run(population=): populations", "queue 7")
-        self._population = None
-        return None
+        """Attach a registry-backed population for this run.  Accepts a
+        :class:`~repro_torch.population.PopulationConfig` (builds the
+        runtime) or a prebuilt
+        :class:`~repro_torch.population.PopulationRuntime`; ``None``
+        detaches."""
+        if population is None:
+            self._population = None
+            return None
+        from repro_torch.population import (PopulationConfig,
+                                            PopulationRuntime)
+        if isinstance(population, PopulationConfig):
+            population = PopulationRuntime(self, population)
+        elif not isinstance(population, PopulationRuntime):
+            raise TypeError(
+                f"population must be a PopulationConfig or "
+                f"PopulationRuntime, got {type(population).__name__}")
+        if population.federation is not self:
+            raise ValueError("population is bound to a different federation")
+        self._population = population
+        return population
 
     # ------------------------------------------------------------------
     def channel_for(self, client: int, lora, emb=None) -> Channel:
-        """Lazily build the client's SS-OP∘sketch channel, keyed by the
-        client.  ``emb`` lets callers share one probe forward across
-        clients that create their channels from the same lora."""
+        """Lazily build the client's SS-OP∘sketch channel.
+
+        Channels are keyed by client *identity*: with a bound population
+        ``client`` is a slot index and the call resolves through the
+        population's identity-keyed channel LRU (the slot's occupant);
+        without one, identity == slot and the channel lives in
+        ``_channels``.  ``emb`` lets callers share one probe forward
+        across clients that create their channels from the same lora."""
         if not self.fed.use_channel:
             return Channel(None, None)
+        if self._population is not None:
+            return self._population.channel_for_slot(client)
         if client not in self._channels:
             if emb is None:
                 emb = self._probe_embeddings(lora)
@@ -285,6 +319,27 @@ class Federation:
     def _probe_embeddings(self, lora):
         return self.model.probe_repr(self.frozen, lora,
                                      self._tokens(self.probe))
+
+    def _reference_basis(self):
+        """Shared semantic basis for identity-keyed channels: top-r SVD
+        of the *reference model's* probe embeddings, computed once.
+        Channels without a population are built from ``lora0``'s
+        embeddings too (elsa profiles from ``lora0``; the plain loops
+        build at round 0, where theta is ``lora0``), so the fixed basis
+        keeps an identity cohort bit-inert, and an evicted identity's
+        channel regenerates bit-exactly whenever it returns."""
+        if self._ref_basis is None:
+            self._ref_basis = semantic_subspace(
+                self._probe_embeddings(self.lora0), self.fed.ssop_r)
+        return self._ref_basis
+
+    def _build_identity_channel(self, cid: int) -> Channel:
+        """One registered identity's channel: shared reference basis +
+        its own seeded rotation (Eq. 18 keyed on the id)."""
+        ss = (make_ssop_from_basis(self._reference_basis(), "elsa-salt",
+                                   cid)
+              if self.fed.use_ssop else None)
+        return Channel(ss, self.plan)
 
     # ------------------------------------------------------------------
     def _grad_fn(self, client: int, split: Split):
@@ -347,7 +402,8 @@ class Federation:
                   else (theta[clients[0]]
                         if len({id(theta[n]) for n in clients}) == 1
                         else None))
-        if self.fed.use_channel and shared is not None and \
+        if self.fed.use_channel and self._population is None and \
+                shared is not None and \
                 any(n not in self._channels for n in clients):
             emb = self._probe_embeddings(shared)
         channels = {n: self.channel_for(n, theta[n] if per_client
@@ -439,10 +495,17 @@ class Federation:
 
     # -- update screening ----------------------------------------------
     def _screen_identities(self, clients):
-        """(ledger, keys) for one screening pass.  Without a bound
-        population (``run(population=)`` is not ported, queue 7),
-        identity == slot and the slot ledger is used directly."""
-        return self.trust_ledger, list(clients)
+        """(ledger, keys) for one screening pass.  With a bound
+        population, verdicts are recorded against client *identities*:
+        each slot resolves to its pinned dispatch-time id, so a straggler
+        arriving after a cohort swap credits or blames the identity that
+        trained, never the slot's new occupant, through the
+        identity-keyed ledger facade.  Without one, identity == slot and
+        the slot ledger is used directly."""
+        if self._population is None:
+            return self.trust_ledger, list(clients)
+        pop = self._population
+        return pop.ledger_view, [pop.pinned(int(n)) for n in clients]
 
     def screened_aggregate(self, clients, trees, weights, base):
         """Edge aggregation with the optional screening stage.
@@ -510,7 +573,14 @@ class Federation:
         snapshots the full federation state on a rolling cadence;
         ``resume_from`` (a checkpoint file or its directory) restores one
         and continues, bit-identically to the uninterrupted run on this
-        loop and the sync runtime policy."""
+        loop and the sync runtime policy.
+
+        ``population`` (a :class:`repro_torch.population.PopulationConfig`
+        or a bound :class:`~repro_torch.population.PopulationRuntime`)
+        decouples the registered client population from the
+        ``n_clients`` slots: each round samples a cohort of registered
+        ids into the slots.  With ``registered == n_clients`` the run is
+        bit-identical to ``population=None``."""
         if runtime is not None:
             from repro_torch.runtime import EdgeRuntime
             return EdgeRuntime(self, runtime).run(
@@ -523,12 +593,13 @@ class Federation:
         rng = np.random.default_rng(fed.seed + 5)
         history = {"round": [], "accuracy": [], "loss": [], "delta": []}
         use_split_dyn = method not in ("elsa-fixed",)
-        self._bind_population(population)
-        iters = {n: CountingIterator(
-                     infinite_batches(self.data[n].tokens,
-                                      self.data[n].labels, fed.batch_size,
-                                      seed=fed.seed + 100 + n))
-                 for n in range(fed.n_clients)}
+        pop = self._bind_population(population)
+        iters = pop.iters if pop is not None else \
+            {n: CountingIterator(
+                 infinite_batches(self.data[n].tokens,
+                                  self.data[n].labels, fed.batch_size,
+                                  seed=fed.seed + 100 + n))
+             for n in range(fed.n_clients)}
         server_opt = self.server_optimizer(method)
 
         start_round, last_delta = 0, float("inf")
@@ -536,7 +607,7 @@ class Federation:
             state = fedckpt.load_state(fedckpt.resolve(resume_from))
             res = fedckpt.restore_run(self, state, method=method,
                                       steps_per_round=steps_per_round,
-                                      iters=iters, rng=rng)
+                                      iters=iters, rng=rng, population=pop)
             groups, div, trust = res.groups, res.div, res.trust
             theta, server_state = res.theta, res.server_state
             history, client_losses = res.history, res.client_losses
@@ -544,6 +615,8 @@ class Federation:
         else:
             with tm.span("profile", method=method):
                 groups, div, trust = self._assign_groups(method, rng)
+            if pop is not None:
+                pop.after_assign(groups)
             theta = self.lora0
             server_state = server_opt.init(theta) if server_opt else None
             client_losses: Dict[int, List[float]] = {
@@ -556,6 +629,8 @@ class Federation:
             self.last_theta = theta
             return history
         for g in range(start_round, global_rounds):
+            if pop is not None:
+                pop.begin_round(g)
             edge_thetas, edge_alphas, losses = {}, {}, []
             actives = {}
             for k, members in groups.items():
@@ -578,6 +653,8 @@ class Federation:
                     for n in active:
                         losses.append(loss_map[n])
                         client_losses[n].append(loss_map[n])
+                    if pop is not None:
+                        pop.note_updates(active, locals_, theta_k)
                     with tm.span("edge_agg", round=g, edge=k,
                                  n_updates=len(active)):
                         theta_k = self.screened_aggregate(
@@ -614,6 +691,10 @@ class Federation:
                 if log:
                     print(f"[{method}] round {g}: acc={acc:.4f} "
                           f"loss={np.mean(losses):.4f} delta={delta:.2e}")
+            if pop is not None:
+                # write the round's outcomes back before any snapshot so
+                # a resume sees the post-round registry
+                pop.end_round(g)
             if ckpt is not None and ckpt.due(g, global_rounds - 1, delta,
                                             fed.xi):
                 ckpt.save(g, fedckpt.build_state(
@@ -621,7 +702,7 @@ class Federation:
                     round_idx=g, theta=theta, server_state=server_state,
                     rng=rng, iters=iters, history=history,
                     client_losses=client_losses, groups=groups, div=div,
-                    trust=trust, delta=delta))
+                    trust=trust, delta=delta, population=pop))
             tm.end_round(g)
             if delta <= fed.xi:
                 break

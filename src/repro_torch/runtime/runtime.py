@@ -18,8 +18,8 @@ into the federation's backend: on a CUDA device the batched engine runs
 every client step through the hand-written kernels.  ``checkpoint=`` and
 ``resume_from=`` work on the sync policy and raise ``ValueError`` under
 the deadline and async policies, whose event queues carry in-flight state
-across rounds.  Not ported yet, and raising ``NotImplementedError`` that
-names the ROADMAP.md item: populations (queue 7).
+across rounds.  ``population=`` binds a registry-backed population
+(:mod:`repro_torch.population`) under every policy.
 """
 from __future__ import annotations
 
@@ -107,6 +107,9 @@ class EdgeRuntime:
             raise ValueError("checkpoint/resume is supported on the "
                              "'sync' runtime policy only, not "
                              f"{self.config.policy!r}")
+        # registry-backed population: every policy samples a per-round
+        # (sync/deadline) or per-fusion-window (async) cohort of
+        # registered ids into the client slots
         self.federation._bind_population(population)
         scheduler = SCHEDULERS[self.config.policy](self)
         history = scheduler.run(method, global_rounds, steps_per_round,

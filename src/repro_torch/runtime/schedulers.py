@@ -33,10 +33,12 @@ window's arrivals with ``Federation.screen_cohort``, and the async policy
 screens each arrival alone (the finite check) and scales its mixing
 weight by the client's trust.  The sync policy also supports full-state
 checkpoint/resume (:mod:`repro_torch.checkpoint.federation`): resuming a
-killed run reproduces the uninterrupted history bit-identically.
-Populations are not ported (``Federation._bind_population`` raises,
-ROADMAP.md queue 7), so the JAX package's population branches are left
-out.
+killed run reproduces the uninterrupted history bit-identically.  With a
+bound population (``run(population=...)``) each policy samples a cohort of
+registered ids into the client slots, per round (sync, deadline) or per
+fusion window (async); a straggler writes its update and its verdict back
+under its pinned dispatch-time identity, never under the slot's new
+occupant.
 """
 from __future__ import annotations
 
@@ -77,6 +79,9 @@ class _SchedulerBase:
         self.churn = rt.churn
         self.trace = rt.trace
         self.rcfg = rt.config
+        # registry-backed population binding, if Federation.run /
+        # EdgeRuntime.run installed one (None -> the slot-keyed path)
+        self.pop = rt.federation._population
 
     # -- shared setup ------------------------------------------------------
     def _setup(self, method: str, assign: bool = True):
@@ -89,12 +94,15 @@ class _SchedulerBase:
         if assign:
             with tm.span("profile", method=method):
                 groups, div, trust = self.fed._assign_groups(method, rng)
-        iters = {n: CountingIterator(
-                     infinite_batches(self.fed.data[n].tokens,
-                                      self.fed.data[n].labels,
-                                      fc.batch_size,
-                                      seed=fc.seed + 100 + n))
-                 for n in range(fc.n_clients)}
+            if self.pop is not None:
+                self.pop.after_assign(groups)
+        iters = self.pop.iters if self.pop is not None else \
+            {n: CountingIterator(
+                 infinite_batches(self.fed.data[n].tokens,
+                                  self.fed.data[n].labels,
+                                  fc.batch_size,
+                                  seed=fc.seed + 100 + n))
+             for n in range(fc.n_clients)}
         server_opt = self.fed.server_optimizer(method)
         server_state = server_opt.init(self.fed.lora0) if server_opt \
             else None
@@ -215,7 +223,8 @@ class SyncScheduler(_SchedulerBase):
             state = fedckpt.load_state(fedckpt.resolve(resume_from))
             res = fedckpt.restore_run(fed, state, method=method,
                                       steps_per_round=steps_per_round,
-                                      iters=iters, rng=rng)
+                                      iters=iters, rng=rng,
+                                      population=self.pop)
             groups, div, trust = res.groups, res.div, res.trust
             theta, server_state = res.theta, res.server_state
             history, client_losses = res.history, res.client_losses
@@ -229,6 +238,8 @@ class SyncScheduler(_SchedulerBase):
         ckpt = fedckpt.Checkpointer(checkpoint) if checkpoint else None
 
         for g in range(start_round, global_rounds):
+            if self.pop is not None:
+                self.pop.begin_round(g, t=t_global)
             edge_thetas, edge_alphas, losses = {}, {}, []
             edge_done = {}
             for k, members in groups.items():
@@ -307,6 +318,8 @@ class SyncScheduler(_SchedulerBase):
                                 self.trace.log(f_n, DUP, n, k, round=g)
                         sp_u.set(sim_s=barrier - t_k, n_updates=len(upds))
                     if upds:
+                        if self.pop is not None:
+                            self.pop.note_updates(senders, upds, theta_k)
                         with tm.span("edge_agg", round=g, edge=k,
                                      n_updates=len(upds)), torch.no_grad():
                             theta_k = fed.screened_aggregate(
@@ -329,6 +342,8 @@ class SyncScheduler(_SchedulerBase):
             if g % eval_every == 0 or g == global_rounds - 1:
                 self._record_eval(history, g, t_global, theta, losses,
                                   delta, log, f"sync/{method}")
+            if self.pop is not None:
+                self.pop.end_round(g)
             if ckpt is not None and ckpt.due(g, global_rounds - 1, delta,
                                              fc.xi):
                 ckpt.save(g, fedckpt.build_state(
@@ -337,7 +352,8 @@ class SyncScheduler(_SchedulerBase):
                     rng=rng, iters=iters, history=history,
                     client_losses=client_losses, groups=groups, div=div,
                     trust=trust, delta=delta, t_global=t_global,
-                    dispatches=disp, trace_records=self.trace.records))
+                    dispatches=disp, trace_records=self.trace.records,
+                    population=self.pop))
             tm.end_round(g, sim_time_s=t_global)
             if delta <= fc.xi or t_global >= self.rcfg.max_sim_s:
                 break
@@ -388,6 +404,8 @@ class DeadlineScheduler(_SchedulerBase):
         edge_round_idx = {k: 0 for k in queues}
 
         for g in range(global_rounds):
+            if self.pop is not None:
+                self.pop.begin_round(g, t=t_global)
             edge_thetas, edge_alphas, losses = {}, {}, []
             edge_done = {}
             for k, members in groups.items():
@@ -419,6 +437,8 @@ class DeadlineScheduler(_SchedulerBase):
             if g % eval_every == 0 or g == global_rounds - 1:
                 self._record_eval(history, g, t_global, theta, losses,
                                   delta, log, f"deadline/{method}")
+            if self.pop is not None:
+                self.pop.end_round(g)
             tm.end_round(g, sim_time_s=t_global)
             if delta <= fc.xi or t_global >= self.rcfg.max_sim_s:
                 break
@@ -448,6 +468,10 @@ class DeadlineScheduler(_SchedulerBase):
                     dur = self._round_seconds(n, use_split_dyn, steps, k,
                                               states[n].rounds_run)
                     f_n = self.churn.finish_time(n, t_k, dur)
+                    if self.pop is not None:
+                        # a straggler may arrive after a cohort swap:
+                        # remember who actually trained in this slot
+                        self.pop.pin(n)
                     states[n].dispatch(t_k, f_n, 0, r_idx)
                     if fault is not None and fault.kind == "crash":
                         t_c = t_k + fault.at_frac * max(f_n - t_k, 0.0)
@@ -476,6 +500,7 @@ class DeadlineScheduler(_SchedulerBase):
             # arrival so an edge round never aggregates nothing
             deadline = nxt.time
         upds, wts, senders, n_late, rep_w = [], [], [], 0, 0.0
+        note_ids = []
         with tm.span("uplink", round=g, edge=k) as sp_u:
             for ev in queue.drain_until(deadline):
                 n = ev.client
@@ -504,18 +529,28 @@ class DeadlineScheduler(_SchedulerBase):
                 upds.append(lora_n)
                 wts.append(w)
                 senders.append(n)
+                if self.pop is not None:
+                    note_ids.append(self.pop.pinned(n))
                 rep_w += fed.client_weight(n)
                 n_late += int(late > 0)
                 if fault is not None and fault.kind == "dup":
                     upds.append(lora_n)
                     wts.append(w)
                     senders.append(n)
+                    if self.pop is not None:
+                        note_ids.append(self.pop.pinned(n))
                     self.trace.log(ev.time, DUP, n, k, round=g)
             sp_u.set(sim_s=deadline - t_k, n_updates=len(upds),
                      n_stragglers=n_late)
         if tm.enabled() and n_late:
             # straggler carry-overs folded this window (late > 0 rounds)
             tm.inc("runtime.stragglers", n_late)
+        if self.pop is not None and upds:
+            # stragglers write back under their pinned dispatch-time
+            # identity; the delta base is the window's edge model (a
+            # straggler's true dispatch model is gone; the registry
+            # column is off the math path)
+            self.pop.note_updates(senders, upds, theta_k, ids=note_ids)
         with tm.span("edge_agg", round=g, edge=k, n_updates=len(upds)), \
                 torch.no_grad():
             if self.fc.screen and upds:
@@ -610,6 +645,9 @@ class AsyncScheduler(_SchedulerBase):
             period = fc.t_rounds * float(np.median(list(est.values()))) \
                 + self.rt.backhaul_s
 
+        if self.pop is not None:
+            # the async cohort swaps per fusion window, not per round
+            self.pop.begin_round(0, t=0.0)
         # initial dispatch: every online cohort member, batched per edge
         for k in groups:
             ready = [n for n in cohort[k] if self.churn.is_online(n, 0.0)]
@@ -648,8 +686,16 @@ class AsyncScheduler(_SchedulerBase):
                     # need the cohorts of the sync and deadline paths
                     fin, _, _ = screen_stats(edge_theta[k], [lora_n], [1.0])
                     ok = bool(fin[0])
-                    fed.trust_ledger.record(n, ok)
-                    score = float(fed.trust_ledger.scores[n])
+                    if self.pop is not None:
+                        # the verdict belongs to whoever trained the
+                        # update: the pinned dispatch-time identity,
+                        # not slot n's current occupant
+                        cid = self.pop.pinned(n)
+                        self.pop.record_trust(cid, ok)
+                        score = self.pop.trust_weight(cid)
+                    else:
+                        fed.trust_ledger.record(n, ok)
+                        score = float(fed.trust_ledger.scores[n])
                     if not ok or score < fed.screening.trust_floor:
                         folds = 0
                     if tm.enabled():
@@ -658,6 +704,12 @@ class AsyncScheduler(_SchedulerBase):
                         tm.inc("screening.verdicts", 1, verdict=v)
                     if folds:
                         w = min(1.0, w * score)
+                if folds and self.pop is not None:
+                    # write back under the dispatch-time identity (the
+                    # cohort may have swapped since); delta base is the
+                    # current pre-fold edge model
+                    self.pop.note_updates([n], [lora_n], edge_theta[k],
+                                          ids=[self.pop.pinned(n)])
                 for _ in range(folds):
                     edge_theta[k] = _mix(edge_theta[k], lora_n, w,
                                          mode=fc.aggregate)
@@ -727,10 +779,14 @@ class AsyncScheduler(_SchedulerBase):
                     # reset only once recorded, so with eval_every > 1
                     # the loss covers every window since the last eval
                     window_losses = []
+                if self.pop is not None:
+                    self.pop.end_round(fusions - 1)
                 tm.end_round(fusions - 1, sim_time_s=t)
                 if delta <= fc.xi:
                     break
                 if fusions < global_rounds:
+                    if self.pop is not None:
+                        self.pop.begin_round(fusions, t=t)
                     cohort = sample_cohort()   # next window's active set
                     for k in groups:           # wake newly-sampled idlers
                         ready = [n for n in cohort[k] if states[n].idle
@@ -761,6 +817,8 @@ class AsyncScheduler(_SchedulerBase):
             dur = self._round_seconds(n, self._use_split_dyn, self._steps,
                                       k, states[n].rounds_run)
             f_n = self.churn.finish_time(n, t, dur)
+            if self.pop is not None:
+                self.pop.pin(n)
             states[n].dispatch(t, f_n, version_k, states[n].rounds_run)
             if fault is not None and fault.kind == "crash":
                 t_c = t + fault.at_frac * max(f_n - t, 0.0)

@@ -1,41 +1,64 @@
-"""Telemetry: counters, gauges, histograms, spans and round markers, one
-``None`` check each while disabled.
+"""Federation telemetry: structured metrics + round-phase tracing (the
+counterpart of the JAX package's ``repro/telemetry``, in its record and
+file formats).
 
-The subset of the JAX package's ``repro/telemetry`` that the port's paths
-use: :mod:`repro_torch.serving` (``serving.requests``, ``serving.tokens``,
-``serving.adapter_swaps``, ``serving.request_s``), the federation's
-round loop (:func:`span` around its phases, :func:`end_round`) and the
-event runtime (``runtime.events{kind=...}``, the ``runtime.sim.*``
-seconds and wire bytes, ``runtime.stragglers``, and each round's
-simulated end, ``end_round(..., sim_time_s=)``), update screening
-(``screening.verdicts{verdict=...}``, ``screening.fallbacks{kind=...}``
-and the trust ledger's gauges ``screening.trust_mean``,
-``screening.trust_min`` and ``screening.below_floor``) and the federation
-checkpoints (``checkpoint.save_s``/``restore_s``, ``checkpoint.saves``/
-``restores``, ``checkpoint.bytes_written``/``bytes_read``).  While
-enabled, a span's wall time goes to the histogram ``span_s{span=...}``,
-each round end counts in ``rounds`` and its simulated end is kept by round
-in ``sim_time_s``; a gauge keeps the last value set.  The JAX package's
-span records and exports wait for ROADMAP.md, queue 6::
+Every module-level helper checks one ``None`` and returns while disabled,
+and the instrumented layers never synchronise the card, draw random
+numbers or branch on telemetry state in a way that changes the math: an
+enabled run computes bit-identical histories and event traces to a
+disabled one, with the same host syncs.  Usage::
 
     from repro_torch import telemetry as tm
 
-    tm.enable()
-    engine.run_until_drained()
-    print(tm.summary())
+    tm.enable(meta={"bench": "fed_round"})
+    fed.run("elsa", global_rounds=4)             # layers self-instrument
+    tm.export("runs/telemetry.jsonl")            # per-round JSONL+summary
     tm.disable()
+
+or scoped::
+
+    with tm.session(jsonl="runs/telemetry.jsonl"):
+        fed.run(...)
+
+Instrumented layers (all no-ops while disabled):
+
+- :mod:`repro_torch.runtime` — every :meth:`EventTrace.log` record
+  bridges to a ``runtime.events{kind=...}`` counter, schedulers record
+  round-lifecycle spans (``dispatch``/``local_steps``/``uplink``/
+  ``edge_agg``/``cloud_agg``/``eval``), per-phase simulated seconds and
+  comm bytes, ``runtime.stragglers``, and each round's simulated end;
+- :mod:`repro_torch.federation` — the round loop's spans and round ends;
+  the engine's ``engine.dispatch_s`` and ``engine.clients``;
+- :mod:`repro_torch.core.screening` — verdict and fallback counters, and
+  the trust ledger's gauges;
+- :mod:`repro_torch.population` — the ``population.*`` gauges (registry
+  size and bytes, eligible and sampled ids, adapter shards, the identity
+  channel cache);
+- :mod:`repro_torch.checkpoint` — save/restore latency and bytes;
+- :mod:`repro_torch.serving` — request latency, tokens, adapter swaps.
+
+The engine's compile gauges of the JAX package (``engine.jit_compiles``
+and the compile cache) wait for the graph capture that takes the
+compiles' place (ROADMAP.md, queue 2 item 11).
 """
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Any, Dict, Optional, Sequence
 
-from repro_torch.telemetry.collector import (DEFAULT_TIME_BUCKETS, Histogram,
-                                             Telemetry, flat_key)
+from repro_torch.telemetry.collector import (DEFAULT_TIME_BUCKETS, NULL_SPAN,
+                                             SCHEMA_VERSION, Histogram,
+                                             NullSpan, Telemetry, flat_key)
+from repro_torch.telemetry.export import export_jsonl, read_jsonl, summarize
+from repro_torch.telemetry.sinks import JsonlSink, Sink, finalize_sink
 
-__all__ = ["DEFAULT_TIME_BUCKETS", "Histogram", "Telemetry", "flat_key",
-           "enabled", "enable", "disable", "get", "inc", "set_gauge",
-           "observe", "span", "end_round", "summary"]
+__all__ = [
+    "DEFAULT_TIME_BUCKETS", "SCHEMA_VERSION", "Histogram", "NullSpan",
+    "Telemetry", "flat_key", "export_jsonl", "read_jsonl", "summarize",
+    "Sink", "JsonlSink", "finalize_sink",
+    "enabled", "enable", "disable", "get", "inc", "set_gauge", "observe",
+    "span", "record_span", "end_round", "export", "summary", "session",
+]
 
 _active: Optional[Telemetry] = None
 
@@ -49,17 +72,26 @@ def get() -> Optional[Telemetry]:
     return _active
 
 
-def enable(meta: Optional[Dict[str, Any]] = None) -> Telemetry:
-    """Start a fresh collector (replacing any previous one)."""
+def enable(meta: Optional[Dict[str, Any]] = None, sink: Optional[Sink] = None,
+           retain_rounds: Optional[int] = None) -> Telemetry:
+    """Start a fresh collector (replacing any previous one).  ``sink``
+    streams every round record as it closes; ``retain_rounds`` bounds the
+    in-memory round window."""
     global _active
-    _active = Telemetry(meta)
+    _active = Telemetry(meta, sink=sink, retain_rounds=retain_rounds)
     return _active
 
 
 def disable() -> None:
+    """Stop collecting; a streaming sink is flushed (trailing partial
+    round + run summary) and closed on the way out."""
     global _active
+    if _active is not None:
+        finalize_sink(_active)
     _active = None
 
+
+# -- forwarding helpers (each is one None-check when disabled) -------------
 
 def inc(name: str, value: float = 1.0, **labels: Any) -> None:
     t = _active
@@ -81,49 +113,50 @@ def observe(name: str, value: float,
         t.observe(name, value, buckets=buckets, **labels)
 
 
-class _Span:
-    """One span around a phase: while telemetry is enabled, its wall time
-    goes to ``span_s{span=name}`` on exit.  Its attributes (round, edge,
-    ...), given here or through :meth:`set` while it is open, are
-    accepted for the JAX package's signature and not recorded."""
-
-    __slots__ = ("_tel", "name", "_t0")
-
-    def __init__(self, tel: Optional[Telemetry], name: str):
-        self._tel = tel
-        self.name = name
-
-    def set(self, **attrs: Any) -> None:
-        pass
-
-    def __enter__(self) -> "_Span":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> bool:
-        if self._tel is not None:
-            self._tel.observe("span_s", time.perf_counter() - self._t0,
-                              span=self.name)
-        return False
-
-
-_NULL_SPAN = _Span(None, "")
-
-
-def span(name: str, **attrs: Any) -> _Span:
-    """A context manager around one phase; a no-op while disabled."""
+def span(name: str, **attrs: Any):
     t = _active
-    return _Span(t, name) if t is not None else _NULL_SPAN
+    return t.span(name, **attrs) if t is not None else NULL_SPAN
+
+
+def record_span(name: str, dur_s: float = 0.0, **attrs: Any) -> None:
+    t = _active
+    if t is not None:
+        t.record_span(name, dur_s=dur_s, **attrs)
 
 
 def end_round(round_idx: int, sim_time_s: Optional[float] = None) -> None:
-    """Close one round; the event runtime passes the simulated clock at
-    the round's end."""
     t = _active
     if t is not None:
         t.end_round(round_idx, sim_time_s=sim_time_s)
 
 
+def export(path: str) -> Optional[str]:
+    """Write the live collector's JSONL; None while disabled."""
+    t = _active
+    return export_jsonl(t, path) if t is not None else None
+
+
 def summary() -> Optional[Dict[str, Any]]:
     t = _active
-    return t.summary() if t is not None else None
+    return summarize(t) if t is not None else None
+
+
+@contextlib.contextmanager
+def session(meta: Optional[Dict[str, Any]] = None,
+            jsonl: Optional[str] = None, sink: Optional[Sink] = None,
+            retain_rounds: Optional[int] = None):
+    """Enable for a block; export to ``jsonl`` (if given) on the way
+    out, then restore the previous collector (sessions nest).  A
+    ``sink`` streams rounds live instead and is flushed + closed on
+    exit (``retain_rounds`` bounds the in-memory window meanwhile)."""
+    global _active
+    prev = _active
+    tel = Telemetry(meta, sink=sink, retain_rounds=retain_rounds)
+    _active = tel
+    try:
+        yield tel
+    finally:
+        if jsonl is not None:
+            export_jsonl(tel, jsonl)
+        finalize_sink(tel)
+        _active = prev

@@ -132,7 +132,8 @@ def test_run_matches_jax_x64(feds, method):
 def test_what_is_not_ported_raises(tmp_path):
     # update screening and checkpoints are ported: FedConfig(screen=True)
     # builds, and run(checkpoint=, resume_from=) works on the plain loop
-    # and the sync runtime; populations and meshes still raise
+    # and the sync runtime; a population that is neither config nor
+    # runtime raises the JAX package's TypeError; meshes still raise
     assert FedConfig(screen=True).screen
     kw = dict(n_clients=4, n_edges=2, layers=4, total_examples=200,
               probe_q=4)
@@ -158,7 +159,8 @@ def test_what_is_not_ported_raises(tmp_path):
             resume_from=path)
         assert again["accuracy"] == hist["accuracy"]
         assert again["loss"] == hist["loss"]
-        with pytest.raises(NotImplementedError, match="queue 7"):
+        with pytest.raises(TypeError, match="PopulationConfig or "
+                                            "PopulationRuntime, got object"):
             fed.run("elsa", global_rounds=1, runtime=runtime,
                     population=object())
     with pytest.raises(ValueError, match="backend"):

@@ -345,7 +345,8 @@ def test_telemetry_span_and_end_round():
         with tm.span("eval", round=0):
             pass
         tm.end_round(0)
-        assert tel.counter("rounds") == 1
-        assert "span_s{span=eval}" in tm.summary()["histograms"]
+        assert [r["round"] for r in tel.rounds] == [0]
+        assert tel.rounds[0]["spans"][0]["name"] == "eval"
+        assert tm.summary()["spans"]["eval"]["count"] == 1
     finally:
         tm.disable()

@@ -76,3 +76,14 @@ def test_serve_cli_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError):
             serve.main(["--steps", "1"])
+
+
+def test_population_telemetry_and_analysis_modules_are_checked():
+    """The populations, telemetry's export and sinks, and the report are
+    among the sources the checks above walk (and import)."""
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"population/__init__.py", "population/registry.py",
+            "population/sampler.py", "population/runtime.py",
+            "telemetry/export.py", "telemetry/sinks.py",
+            "analysis/__init__.py",
+            "analysis/telemetry_report.py"} <= names

@@ -331,7 +331,7 @@ def test_screening_telemetry_counts_verdicts_and_sets_gauges():
     assert tel.gauge("screening.trust_mean") == float(led.scores.mean())
     assert tel.gauge("screening.trust_min") == float(led.scores.min())
     assert tel.gauge("screening.below_floor") == 0
-    assert tel.summary()["gauges"]["screening.trust_min"] \
+    assert tm.summarize(tel)["gauges"]["screening.trust_min"] \
         == float(led.scores.min())
 
 
