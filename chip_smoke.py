@@ -9,7 +9,9 @@ runtime=RuntimeConfig(policy=...))``), and the federation of a dense
 decoder (full-width olmo-1b), then the federation with update screening
 (``FedConfig(screen=True)``), with full-state checkpoints and resumes, and
 with registry-backed client populations (``run(population=
-PopulationConfig(...))``) inside telemetry sessions.
+PopulationConfig(...))``) inside telemetry sessions, and the MoE family
+(grok-1; deepseek-v2 with multi-head latent attention) serving and
+training through ELSA's channel at full width, depth cut.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --channel-times-of CHECKOUT
@@ -25,6 +27,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    per source, all started together;
 3. the LoRA kernel against its plain version at llama3-8b's decode shapes,
    one ragged shape and olmo-1b's training shape (T 512), in bf16 and f32,
+   grok-1's decode and training shapes (K 6144, O 6144 and 1024) in bf16,
    and at the federation's (T 2048, K = O = 768, r 8 and r 0, f32), with
    times, bounds, a library yardstick and the route each shape takes (the
    library's rule held against its Python twin), and, for bf16 at T >= 64,
@@ -33,8 +36,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    checked and timed, at T 16 to 256;
 3b. the channel's kernels (SS-OP, the count sketch's scatter and gather)
    against their plain versions, forward and backward, at olmo-1b's, the
-   federation's and the causal-LM federation's shapes and ragged ones, in
-   bf16 and f32, each path's shapes timed in its own type (olmo-1b bf16,
+   federation's and the causal-LM federation's shapes, grok-1's and
+   deepseek-v2's (D 6144 and 5120) and ragged ones, in bf16 and f32, each path's shapes timed in its own type (olmo-1b bf16,
    the two federations f32) with bounds and a copy yardstick (and decompress
    beside a composite of library calls), the route of every call (the
    library's rule held against its Python twin), then the sweep of the
@@ -45,7 +48,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    gradient (the Function against autograd through the plain version), at
    bert-base's and olmo-1b's shapes (olmo-1b's in bf16 and, as the
    causal-LM federation runs it, in f32), ragged lengths, GQA at llama3-8b's
-   ratio (at Dh 128 and 64), a window and S 4096 (with the peak memory of its forward and
+   ratio (at Dh 128 and 64), grok-1's (G 6), deepseek-v2's multi-head
+   latent attention (q/k 192, v 128; bf16 and f32), a window and S 4096
+   (with the peak memory of its forward and
    backward), with times, bounds and ``scaled_dot_product_attention`` as
    the library yardstick, and the time of the plain recomputing backward
    beside SDPA's backward;
@@ -131,7 +136,18 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    registered as ``"olmo-1b-full"``, 4 clients on 2 edges, the launcher's
    8 x 64 stream, 2 rounds of 2 local steps on the default backend, with
    phase 10's launch check (16 blocks) and finite losses;
-11. every LoRA shape that phases 5, 8, 10, 10r, 13, 14, 15, 16 and 12
+17. the MoE family, grok-1 and deepseek-v2 (MLA, a dense first layer),
+   one at a time: (a) one block at full width in f32, kernel path against
+   plain path (forward, aux, the input's and the LoRA tree's gradients,
+   each to 4x the plain path's f32-vs-f64 error; routing equal as
+   integers); (b) ``ServingEngine`` on the depth-cut model (grok-1 4
+   layers, deepseek-v2 5, full width, bf16): 8 requests for 16 new
+   tokens, ``swap_adapter``, 8 more, with tokens/s and ms a tick beside
+   the floor of reading every weight once a tick, the launches exact (grok
+   16 LoRA a tick, deepseek none); (c) ``make_train_step`` through the
+   launcher's channel, 10 steps of 8 x 64 at lr 3e-3: losses finite and
+   falling, each kernel's launches a step as the path implies;
+11. every LoRA shape that phases 5, 8, 10, 10r, 13, 14, 15, 16, 12 and 17
    launched (recorded while they ran, with their pointers' alignment)
    against the plain version at phase 3's tolerances, so every kernel
    instantiation a path ran is held.
@@ -182,7 +198,8 @@ from repro_torch.kernels.ssop import ops as ssop_ops  # noqa: E402
 from repro_torch.kernels.ssop.ref import ssop_apply_ref  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.train import make_serve_step  # noqa: E402
-from repro_torch.models import common, zoo  # noqa: E402
+from repro_torch.models import common, transformer, zoo  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.split_api import (BertSplitModel,  # noqa: E402
                                           CausalLMSplitModel,
                                           get_split_model,
@@ -306,11 +323,16 @@ def kernel_phase():
               ("train", 512, 2048, 2048, 16)]
     # bert-base's q/v and its adapter-free k/o in a client step
     fed = [("fed", 2048, 768, 768, 8), ("fed k/o", 2048, 768, 768, 0)]
+    # grok-1's projections (phase 17), bf16: decode at batch 8 and training
+    # at 8 x 64 tokens; q and o are 6144 x 6144, k and v 6144 x 1024
+    grok = [("grok q/o", 8, 6144, 6144, 16), ("grok k/v", 8, 6144, 1024, 16),
+            ("grok train q/o", 512, 6144, 6144, 16),
+            ("grok train k/v", 512, 6144, 1024, 16)]
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         for name, T, K, O, r in shapes + (fed if dtype == torch.float32
-                                          else []):
+                                          else grok):
             def make():
                 return ((torch.randn(K, O, generator=g, device="cuda")
                          / K ** 0.5).to(dtype),
@@ -506,10 +528,16 @@ def _channel_work(op, T, D, r, Y, Z, dtype):
 CHANNEL_CASES = [("train", 512, 2048, 16, 3, 325),
                  ("federation", 2048, 768, 8, 3, 121),
                  ("causal-LM", 512, 2048, 8, 3, 325),
+                 ("grok-1", 512, 6144, 16, 3, 975),
+                 ("deepseek-v2", 512, 5120, 16, 3, 812),
                  ("ragged Y4", 5, 2000, 16, 4, 37),
                  ("ragged Y5", 5, 2000, 16, 5, 37)]
 CHANNEL_SWEPT = {("train", torch.bfloat16), ("federation", torch.float32)}
-CHANNEL_TIMED = CHANNEL_SWEPT | {("causal-LM", torch.float32)}
+# the MoE family's launcher channels (phase 17: 8 x 64 tokens, r 16, Y 3,
+# Z = int(D / 6.3)), timed in the bf16 they run
+CHANNEL_TIMED = CHANNEL_SWEPT | {("causal-LM", torch.float32),
+                                 ("grok-1", torch.bfloat16),
+                                 ("deepseek-v2", torch.bfloat16)}
 
 
 def _channel_ops(T, D, r, Y, Z, dtype, g):
@@ -891,7 +919,8 @@ def _wrapper(kernel):
 # 3c. flash attention against its plain version
 # ---------------------------------------------------------------------------
 
-# (case, B, S, H, KV, Dh, dtype, causal, window)
+# (case, B, S, H, KV, Dh, dtype, causal, window); Dh is (Dqk, Dv) where v's
+# head dim differs (deepseek-v2's multi-head latent attention, expanded)
 FLASH_CASES = [
     ("bert-base", 16, 128, 12, 12, 64, torch.float32, False, 0),
     ("olmo-1b", 8, 64, 16, 16, 128, torch.bfloat16, True, 0),
@@ -902,8 +931,17 @@ FLASH_CASES = [
     ("gqa llama3-8b", 1, 512, 32, 8, 128, torch.bfloat16, True, 0),
     ("window 128", 1, 1000, 8, 8, 128, torch.bfloat16, True, 128),
     ("gqa G4 d64", 1, 512, 32, 8, 64, torch.bfloat16, True, 0),
+    ("grok-1 G6", 8, 64, 48, 8, 128, torch.bfloat16, True, 0),
+    ("deepseek-v2 MLA", 8, 64, 128, 128, (192, 128), torch.bfloat16, True,
+     0),
+    ("deepseek-v2 MLA f32", 8, 64, 128, 128, (192, 128), torch.float32,
+     True, 0),
     ("long 4096", 1, 4096, 8, 8, 128, torch.bfloat16, True, 0),
 ]
+
+
+def _head_dims(Dh):
+    return Dh if isinstance(Dh, tuple) else (Dh, Dh)
 
 
 def _attended_pairs(S, causal, window):
@@ -920,13 +958,15 @@ def _attended_pairs(S, causal, window):
 
 
 def _flash_bound(B, S, H, KV, Dh, dtype, causal, window):
-    """Bytes: q and o (B S H Dh), k and v (B S KV Dh) read or written
-    once, m and l (B H S fp32).  Operations: 4 Dh per attended pair and
-    head (q·k and p·v), at the bf16 tensor-core peak for bf16 and the
-    CUDA-core fp32 peak for f32 (the kernel takes no TF32)."""
+    """Bytes: q (B S H Dqk) and o (B S H Dv), k (B S KV Dqk) and v (B S
+    KV Dv) read or written once, m and l (B H S fp32).  Operations:
+    2 (Dqk + Dv) per attended pair and head (q·k and p·v), at the bf16
+    tensor-core peak for bf16 and the CUDA-core fp32 peak for f32 (the
+    kernel takes no TF32)."""
+    Dqk, Dv = _head_dims(Dh)
     el = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * B * S * H * Dh + 2 * B * S * KV * Dh) * el + 8 * B * H * S
-    ops = 4 * Dh * B * H * _attended_pairs(S, causal, window)
+    nbytes = ((B * S * H + B * S * KV) * (Dqk + Dv)) * el + 8 * B * H * S
+    ops = 2 * (Dqk + Dv) * B * H * _attended_pairs(S, causal, window)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -971,13 +1011,16 @@ def flash_kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for case, B, S, H, KV, Dh, dtype, causal, window in FLASH_CASES:
+        Dqk, Dv = _head_dims(Dh)
+
         def make():
-            return [torch.randn(B, S, n, Dh, generator=gen,
-                                device="cuda").to(dtype) for n in (H, KV, KV)]
+            return [torch.randn(B, S, n, d, generator=gen,
+                                device="cuda").to(dtype)
+                    for n, d in ((H, Dqk), (KV, Dqk), (KV, Dv))]
         q, k, v = make()
         n0 = fa_ops.flash_attention_fwd.launches
         o, m, l = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
-                                             window=window, scale=Dh ** -0.5)
+                                             window=window, scale=Dqk ** -0.5)
         torch.cuda.synchronize()
         check(fa_ops.flash_attention_fwd.launches == n0 + 1,
               f"flash {case}: the kernel did not launch")
@@ -1018,13 +1061,13 @@ def flash_kernel_phase():
         sets = [(q, k, v)] + [tuple(make()) for _ in range(
             max(1, -(-2 * L2_BYTES // nbytes)) - 1)]
         iters = 60 if S * S * H * B <= 2 ** 24 else 10
-        row = dict(case=case, B=B, S=S, H=H, KV=KV, Dh=Dh,
+        row = dict(case=case, B=B, S=S, H=H, KV=KV, Dh=Dqk, Dv=Dv,
                    dtype=str(dtype).removeprefix("torch."), causal=causal,
                    window=window, max_abs_err=err, tol=tol,
                    ml_rel_err=err_ml, grad_rel_err=grad_err,
                    grad_peak_mib=peak_mib)
         row["ms"] = _time_ms(lambda a, b, c: fa_ops.flash_attention_fwd(
-            a, b, c, causal=causal, window=window, scale=Dh ** -0.5),
+            a, b, c, causal=causal, window=window, scale=Dqk ** -0.5),
             sets, iters=iters)
         row["plain_ms"] = _time_ms(lambda a, b, c: attention_ref(
             a, b, c, causal=causal, window=window), sets, iters=iters)
@@ -1035,12 +1078,12 @@ def flash_kernel_phase():
         bwd_sets = []
         for a, b, c in sets:
             fo, fm, fl = fa_ops.flash_attention_fwd(
-                a, b, c, causal=causal, window=window, scale=Dh ** -0.5)
+                a, b, c, causal=causal, window=window, scale=Dqk ** -0.5)
             bwd_sets.append((a, b, c, fo, fm, fl, torch.randn(
                 fo.shape, generator=gen, device="cuda").to(dtype)))
         row["bwd_ms"] = _time_ms(
             lambda *t: fa_ops.attention_bwd(*t, causal=causal, window=window,
-                                            scale=Dh ** -0.5),
+                                            scale=Dqk ** -0.5),
             bwd_sets, iters=iters)
         row["library_bwd_ms"] = _time_ms(
             lambda a, b, c, fo, fm, fl, g: _sdpa_fwd_bwd(
@@ -1048,7 +1091,7 @@ def flash_kernel_phase():
             bwd_sets, iters=iters) - row["library_ms"]
         del bwd_sets
         rows.append(row)
-        print(f"flash {case:13s} B={B} S={S} H={H} KV={KV} Dh={Dh} "
+        print(f"flash {case:13s} B={B} S={S} H={H} KV={KV} Dh={Dqk} Dv={Dv} "
               f"{row['dtype']:8s} {'causal' if causal else 'full':6s} "
               f"w={window}: err {err:.3e} (tol {tol:.3e}), m/l {err_ml:.1e}, "
               f"grad {grad_err:.1e} of scale; kernel {row['ms'] * 1e3:.2f} us"
@@ -1078,7 +1121,7 @@ def flash_kernel_phase():
 def _random_b(lora, gen, std):
     """Nonzero LoRA B (the spec init leaves it zero, which would leave the
     adapter half of the kernel unexercised)."""
-    for layer in lora["blocks"]:
+    for layer in lora["blocks"] + lora.get("prefix", []):
         for k, t in layer["attn"].items():
             if k.endswith("_b"):
                 t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
@@ -3117,6 +3160,270 @@ def causal_lm_federation_phase():
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# 17. the MoE family
+# ---------------------------------------------------------------------------
+
+# depth on the card: every published width kept, the depth cut so that one
+# model's bf16 weights fit beside its activations (grok-1: 4 MoE blocks,
+# 42.6 GB; deepseek-v2: the dense first layer + 4 MLA/MoE blocks, 34.5 GB)
+MOE_DEPTH = {"grok-1-314b": 4, "deepseek-v2-236b": 5}
+
+
+@contextlib.contextmanager
+def _recording_routes(routes):
+    """Record every MoE routing decision (``sel``, ``keep``) of the block
+    into ``routes``."""
+    route = moe_lib.route
+
+    def recorded(cfg, router, xt):
+        out = route(cfg, router, xt)
+        routes.append((out[2].clone(), out[3].clone()))
+        return out
+
+    moe_lib.route = recorded
+    try:
+        yield routes
+    finally:
+        moe_lib.route = route
+
+
+def _soften_attention(frozen_block):
+    """wq/wk (grok-1) or the query up-projection (deepseek-v2) x 0.1, as
+    phase 7 softens olmo-1b's: at the init the attention is sharp enough
+    that the plain path's own f32 error would leave little to check."""
+    for k in ("wq", "wk", "w_uq"):
+        if k in frozen_block["attn"]:
+            frozen_block["attn"][k].mul_(0.1)
+
+
+def _moe_block_parity(arch, B=2, S=64):
+    """One MoE block (grok-1's GQA + MoE; deepseek-v2's MLA + MoE) at full
+    width in f32: the kernel path against the plain path on the same
+    weights and input, the plain path also in f64 (its weights converted
+    in place, one leaf at a time).  Each of the output, the aux loss, the
+    input gradient and every LoRA gradient (of ``sum(out * g) + aux``)
+    must agree to 4x the plain path's own f32 error (against its f64
+    run), or 1e-5 of its scale; the routing (``sel``, ``keep``) of the two
+    f32 paths equal as integers."""
+    cfg = get_config(arch).with_(param_dtype="float32",
+                                 activation_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    frozen = init_tree(transformer._one_block_specs(cfg, use_moe=True), gen,
+                       torch.float32, "cuda")
+    lora = init_tree(transformer._one_block_lora_specs(cfg), gen,
+                     torch.float32, "cuda")
+    _random_b({"blocks": [lora]}, gen, 0.02)
+    _soften_attention(frozen)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+    g = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+    pos = torch.arange(S, device="cuda")
+
+    def run(c, f, lp, x_, g_):
+        leaves = [t.requires_grad_(True) for t in tree_leaves(lp)]
+        xr = x_.clone().requires_grad_(True)
+        routes = []
+        with _recording_routes(routes):
+            out, _, aux = transformer._block_apply(c, f, lp, xr,
+                                                   positions=pos,
+                                                   use_moe=True)
+            grads = torch.autograd.grad((out * g_).sum() + aux,
+                                        leaves + [xr])
+        torch.cuda.synchronize()
+        for t in leaves:
+            t.requires_grad_(False)
+        return {"out": out.detach(), "aux": aux.detach(), "dx": grads[-1],
+                **{f"d{i}": t for i, t in enumerate(grads[:-1])}}, routes[0]
+
+    _zero_counts()
+    kern, k_route = run(cfg, frozen, lora, x, g)
+    counts = _counts()
+    want = {"ssop_apply": 0, "sketch_scatter": 0, "sketch_gather": 0,
+            "lora_matmul": 0 if cfg.mla else 4, "flash_attention": 1}
+    check(counts == want, f"{arch} block: kernel path launches {counts}")
+    with plain_path():
+        plain, p_route = run(cfg, frozen, lora, x, g)
+        for tree in (frozen, lora):
+            for leaf in tree_leaves(tree):
+                leaf.data = leaf.data.double()
+        cfg64 = cfg.with_(param_dtype="float64", activation_dtype="float64")
+        ref, r_route = run(cfg64, frozen, lora, x.double(), g.double())
+    check(_counts() == counts, "the plain path launched a kernel")
+    check(torch.equal(k_route[0], p_route[0])
+          and torch.equal(k_route[1], p_route[1]),
+          f"{arch} block: the kernel path routed other tokens than the "
+          f"plain path")
+    same64 = (torch.equal(p_route[0], r_route[0])
+              and torch.equal(p_route[1], r_route[1]))
+    rows = {}
+    for key in kern:
+        err = (kern[key] - plain[key]).abs().max().item()
+        floor = (plain[key].double() - ref[key]).abs().max().item()
+        scale = ref[key].abs().max().item()
+        tol = max(4 * floor, 1e-5 * scale)
+        rows[key] = dict(err=err, floor=floor, scale=scale, tol=tol)
+        check(torch.isfinite(kern[key]).all().item(), f"{arch} {key}")
+        check(err <= tol, f"{arch} block {key}: kernel vs plain "
+                          f"{err:.3e} > {tol:.3e} (plain f32 vs f64 "
+                          f"{floor:.3e}, scale {scale:.3e})")
+    worst = max(rows.values(), key=lambda r: r["err"] / r["scale"])
+    kept = int(k_route[1].sum())
+    print(f"{arch} block (f32, B {B} x S {S}): out err "
+          f"{rows['out']['err']:.3e} (tol {rows['out']['tol']:.3e}), aux "
+          f"{rows['aux']['err']:.3e} (tol {rows['aux']['tol']:.3e}), dx "
+          f"{rows['dx']['err']:.3e} (tol {rows['dx']['tol']:.3e}); "
+          f"{len(kern) - 3} LoRA gradients, worst err/scale "
+          f"{worst['err'] / worst['scale']:.2e}; routing equal, "
+          f"{kept}/{k_route[1].numel()} (token, choice) pairs kept"
+          f"{'' if same64 else ' (f64 routes differently)'}; launches "
+          f"{counts}", flush=True)
+    del frozen, lora, kern, plain, ref
+    torch.cuda.empty_cache()
+    return dict(rows=rows, kept=kept, pairs=k_route[1].numel(),
+                f64_same_routing=same64, launches=counts)
+
+
+def _moe_serving(arch, cfg, frozen, lora, gen):
+    """``ServingEngine`` over the depth-cut model: one batch of 8 requests
+    for 16 new tokens, ``swap_adapter``, a second batch."""
+    engine = ServingEngine(cfg, params={"frozen": frozen, "lora": lora},
+                           batch_size=8, max_len=48)
+    engine.submit([1, 2, 3], max_new_tokens=2)        # warm-up batch
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    ticks0, tokens0, dt0 = (engine.stats["ticks"], engine.stats["tokens"],
+                            engine.stats["decode_s"])
+    rng = np.random.default_rng(17)
+
+    def requests():
+        return [engine.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
+                              max_new_tokens=16)
+                for n in rng.integers(4, 17, size=8)]
+    _zero_counts()                                   # the main path starts
+    first = requests()
+    engine.run_until_drained()
+    fresh = init_tree(zoo.get_model(cfg).specs(cfg)["lora"], gen,
+                      cfg.dtype(), "cuda")
+    engine.swap_adapter(_random_b(fresh, gen, 0.02))
+    second = requests()
+    engine.run_until_drained()
+    counts = _counts()                               # the main path ends
+    ticks = engine.stats["ticks"] - ticks0
+    tokens = engine.stats["tokens"] - tokens0
+    dt = engine.stats["decode_s"] - dt0
+    for r in first + second:
+        check(r.done and len(r.output) == 16,
+              f"{arch} request {r.request_id}: {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output),
+              f"{arch} request {r.request_id}: token out of vocab")
+    per_tick = 0 if cfg.mla else 4 * cfg.num_layers
+    want = {k: 0 for k in counts} | {"lora_matmul": per_tick * ticks}
+    check(counts == want, f"{arch} serving launches {counts} != {want}")
+    # a tick reads every weight once (the dense dispatch reads every
+    # expert) but the embedding's 8 rows
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(frozen) + tree_leaves(fresh))
+    emb = frozen["embed"]
+    nbytes -= (emb.shape[0] - 8) * emb.shape[1] * emb.element_size()
+    floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(ticks=ticks, tokens=tokens, decode_s=dt,
+               tokens_per_s=tokens / dt, ms_per_tick=dt / ticks * 1e3,
+               floor_ms_per_tick=floor_ms, weight_bytes=nbytes,
+               lora_launches_per_tick=counts["lora_matmul"] / ticks,
+               launches=counts)
+    print(f"{arch} serving ({cfg.num_layers} layers, bf16): 16 requests in "
+          f"2 batches, {ticks} ticks, {tokens} tokens in {dt:.3f}s -> "
+          f"{tokens / dt:.1f} tokens/s, {dt / ticks * 1e3:.2f} ms/tick "
+          f"(floor {floor_ms:.2f} ms: {nbytes / 1e9:.2f} GB of weights at "
+          f"3.35 TB/s); LoRA launches {counts['lora_matmul']} "
+          f"({counts['lora_matmul'] / ticks:.0f} a tick)", flush=True)
+    return out, counts
+
+
+def _moe_training(arch, cfg, frozen, gen, steps=10):
+    """``make_train_step`` with the launcher's channel (``channel_params``,
+    ``SketchPlan`` built once, ``batch_stream`` 8 x 64), lr 3e-3, bf16,
+    from the LoRA init (B zero), as ``launch/train.py::_main`` runs it."""
+    n_prefix = cfg.moe.first_dense_layers
+    n_blocks = cfg.num_layers - n_prefix
+    check(train.elsa_boundaries(cfg) == (1, 1),
+          f"{arch}: cuts {train.elsa_boundaries(cfg)}")
+    lora = init_tree(zoo.get_model(cfg).specs(cfg)["lora"], gen,
+                     cfg.dtype(), "cuda")
+    _, z = train.elsa_channel_specs(cfg)
+    ch = train.channel_params(cfg, z, "cuda")
+    ch["plan"] = SketchPlan(ch["bucket"], ch["sign"], z)
+    opt = AdamW(lr=3e-3)
+    opt_state = opt.init(lora)
+    step = train.make_train_step(cfg, optimizer=opt, elsa_z=z)
+    batches = train.batch_stream(cfg, 8, 64, "cuda")
+    base = _memory_base()
+    _zero_counts()                                   # the main path starts
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.time()
+        batch = {**next(batches), "_channel": ch}
+        lora, opt_state, loss = step(frozen, lora, opt_state, batch)
+        losses.append(float(loss))                   # syncs with the device
+        step_s.append(time.time() - t0)
+    counts = _counts()                               # the main path ends
+    peak = _peak_gib(base)
+    per_step = {"ssop_apply": 8, "sketch_scatter": 4, "sketch_gather": 4,
+                "lora_matmul": 0 if cfg.mla else 2 * 4 * n_blocks,
+                "flash_attention": n_prefix + 2 * n_blocks}
+    want = {k: steps * v for k, v in per_step.items()}
+    check(all(np.isfinite(losses)), f"{arch} losses {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    check(last < first, f"{arch}: loss did not fall: first 3 {first:.4f}, "
+                        f"last 3 {last:.4f}")
+    check(counts == want, f"{arch} training launches {counts} != {want}")
+    ms = statistics.median(step_s[1:]) * 1e3
+    print(f"{arch} training ({cfg.num_layers} layers, bf16, --elsa, cuts "
+          f"(1, 1), 8 x 64): {steps} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first 3 {first:.4f}, last 3 {last:.4f}); step "
+          f"{ms:.1f} ms (median of steps 2-{steps}; first "
+          f"{step_s[0] * 1e3:.1f}) -> {512 / ms * 1e3:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB above the weights; launches per step "
+          f"{ {k: v // steps for k, v in counts.items()} }", flush=True)
+    return dict(steps=steps, losses=losses, step_ms=ms,
+                first_step_ms=step_s[0] * 1e3, tokens_per_s=512 / ms * 1e3,
+                peak_gib_above_weights=peak,
+                launches_per_step={k: v // steps for k, v in counts.items()}
+                ), counts
+
+
+def moe_family_phase():
+    """grok-1 and deepseek-v2 (the MoE family), one at a time: (a) one
+    block's parity at full width in f32; (b) serving and (c) training of
+    the depth-cut model (``MOE_DEPTH``) at full width in bf16, random
+    weights from a seed."""
+    out, launches = {}, {}
+    for arch in MOE_DEPTH:
+        name = arch.split("-")[0] + "-" + arch.split("-")[1]
+        t0 = time.time()
+        rec = {"parity": _moe_block_parity(arch)}
+        cfg = get_config(arch).with_(num_layers=MOE_DEPTH[arch])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        frozen = init_tree(zoo.get_model(cfg).specs(cfg)["frozen"], gen,
+                           cfg.dtype(), "cuda")
+        lora = _random_b(init_tree(zoo.get_model(cfg).specs(cfg)["lora"],
+                                   gen, cfg.dtype(), "cuda"), gen, 0.02)
+        torch.cuda.synchronize()
+        rec["weights_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        print(f"{arch}: {cfg.num_layers} layers at full width, bf16: "
+              f"{rec['weights_gib']:.2f} GiB on the card", flush=True)
+        rec["serving"], launches[f"{name} serve"] = _moe_serving(
+            arch, cfg, frozen, lora, gen)
+        del lora
+        rec["training"], launches[f"{name} train"] = _moe_training(
+            arch, cfg, frozen, gen)
+        del frozen
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.time() - t0
+        out[arch] = rec
+    return out, launches
+
+
 def build_phase():
     """The four libraries, one nvcc each, started together."""
     t0 = time.time()
@@ -3206,6 +3513,8 @@ def main():
         s_parity = split_parity_phase()
     with phase("12 causal-LM federation"), _recording_lora_calls(path_calls):
         causal, causal_launches = causal_lm_federation_phase()
+    with phase("17 the MoE family"), _recording_lora_calls(path_calls):
+        moe_family, moe_launches = moe_family_phase()
     with phase("11 every LoRA shape of the paths against plain version"):
         path_rows = path_shapes_phase(path_calls)
 
@@ -3225,7 +3534,8 @@ def main():
                "screening": screening_launches[name],
                "checkpoints": ckpt_launches[name],
                "populations": population_launches[name],
-               "causal-LM federation": causal_launches[name]}
+               "causal-LM federation": causal_launches[name],
+               **{path: c[name] for path, c in moe_launches.items()}}
         if name == "lora_matmul":
             out = {"serve": serve_launches, **out}
         return out
@@ -3246,7 +3556,12 @@ def main():
                 at_federation_shape={k: t2048[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "max_abs_err")} | {"shape": "T=2048 K=768 O=768 r=8 "
-                                                "float32"})
+                                                "float32"},
+                at_grok_shapes=[{k: r_[k] for k in (
+                    "shape", "T", "K", "O", "r", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "route")} for r_ in rows if r_["shape"].startswith(
+                        "grok")])
     kernels = [lora]
     for name, src, repl, fwd, bwd in (
             ("ssop_apply", "src/repro_torch/csrc/ssop.cu",
@@ -3265,6 +3580,10 @@ def main():
                for op in (fwd, bwd)}
         clm = {op: pick(name, op, "causal-LM", "float32")
                for op in (fwd, bwd)}
+        moe_shapes = {case: {op: {k: r_[k] for k in timed + ("route",)}
+                             for op in (fwd, bwd)
+                             for r_ in [pick(name, op, case)]}
+                      for case in ("grok-1", "deepseek-v2")}
         row.update(shape=f"{fwd}, T=512 D=2048 r=16 Y=3 Z=325 bfloat16",
                    launches_by_path=by_path(name),
                    backward={k: b[k] for k in timed} | {"op": bwd},
@@ -3275,7 +3594,11 @@ def main():
                    at_causal_lm_shape={
                        op: {k: r_[k] for k in timed}
                        for op, r_ in clm.items()} | {
-                       "shape": "T=512 D=2048 r=8 Y=3 Z=325 float32"})
+                       "shape": "T=512 D=2048 r=8 Y=3 Z=325 float32"},
+                   at_grok_shape=moe_shapes["grok-1"] | {
+                       "shape": "T=512 D=6144 r=16 Y=3 Z=975 bfloat16"},
+                   at_deepseek_shape=moe_shapes["deepseek-v2"] | {
+                       "shape": "T=512 D=5120 r=16 Y=3 Z=812 bfloat16"})
         row["copy_ms"] = pick(name, fwd)["copy_ms"]
         row["bytes_copy_ms"] = pick(name, fwd)["bytes_copy_ms"]
         if name == "sketch_gather":   # the composite of three library calls
@@ -3298,9 +3621,12 @@ def main():
                      "causal-LM federation client step":
                          causal["launches_per_step"]["flash_attention"],
                      "olmo-1b training step":
-                         training["launches_per_step"]["flash_attention"]},
+                         training["launches_per_step"]["flash_attention"],
+                     **{f"{arch} training step": rec["training"][
+                         "launches_per_step"]["flash_attention"]
+                        for arch, rec in moe_family.items()}},
                  cases=[{k: r[k] for k in (
-                     "case", "B", "S", "H", "KV", "Dh", "dtype", "causal",
+                     "case", "B", "S", "H", "KV", "Dh", "Dv", "dtype", "causal",
                      "window", "ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by", "max_abs_err", "grad_rel_err",
                      "grad_peak_mib", "bwd_ms", "library_bwd_ms")}
@@ -3322,6 +3648,7 @@ def main():
                    "populations": populations,
                    "split_parity": s_parity,
                    "causal_lm_federation": causal,
+                   "moe_family": moe_family,
                    **record}, f, indent=1, default=str)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

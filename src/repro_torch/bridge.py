@@ -12,6 +12,10 @@ a list with one dict per layer.  So the mapping is by path:
 
 Non-parametric norms (olmo-1b's ``ln1``/``ln2``/``final_norm``) are empty
 dicts and cross as empty dicts; a tied-embedding model has no ``head``.
+An MoE model's leading dense layers (deepseek-v2's first layer) are a list
+of per-layer dicts under ``"prefix"`` in both packages (the JAX package
+unrolls them in front of its scan) and cross as that list; ``"blocks"``
+then holds the other ``num_layers - first_dense_layers`` layers.
 BERT's leaves outside the block stack (frozen ``pos``, ``seg`` and
 ``ln_embed``; LoRA ``pooler`` and ``head``) have no layer axis and cross as
 they are.
@@ -46,6 +50,8 @@ def _to_torch(a, device, dtype):
 def _tree_to_torch(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device, dtype) for v in tree]
     return _to_torch(tree, device, dtype)
 
 
@@ -84,9 +90,13 @@ def params_from_jax_numpy(cfg, frozen_np, lora_np, device="cuda", dtype=None):
     port's ``{"frozen", "lora"}`` parameters on ``device``.  ``dtype``
     casts the floating leaves (None keeps each leaf's own)."""
     n = _n_layers(frozen_np["blocks"])
-    if n != cfg.num_layers:
-        raise ValueError(f"{cfg.name}: the tree has {n} layers, the config "
-                         f"{cfg.num_layers}")
+    n_prefix = cfg.moe.first_dense_layers if cfg.moe else 0
+    if n != cfg.num_layers - n_prefix or \
+            len(frozen_np.get("prefix", ())) != n_prefix:
+        raise ValueError(
+            f"{cfg.name}: the tree has {n} stacked layers and "
+            f"{len(frozen_np.get('prefix', ()))} prefix layers, the config "
+            f"{cfg.num_layers} layers ({n_prefix} of them prefix)")
     return {"frozen": _from_jax(frozen_np, device, dtype),
             "lora": _from_jax(lora_np, device, dtype)}
 
@@ -101,6 +111,8 @@ def _to_numpy(t):
 def _tree_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_numpy(v) for v in tree]
     return _to_numpy(tree)
 
 
@@ -147,14 +159,17 @@ def opt_state_to_jax_numpy(state):
 def _sorted_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _sorted_leaves(v)]
     return [tree]
 
 
 def jax_leaf_order(tree):
     """The leaves of one of the port's parameter trees, listed so that
     their flattened concatenation is ``jax.tree_util.tree_leaves`` of the
-    JAX package's tree flattened: dict keys sorted, and each stacked
-    ``blocks`` leaf as its layers in turn (layer-major).  The population
+    JAX package's tree flattened: dict keys sorted, lists (an MoE model's
+    ``prefix``) in order, and each stacked ``blocks`` leaf as its layers in
+    turn (layer-major).  The population
     registry lays out its adapter rows this way, so the two packages'
     rows compare element by element."""
     out = []

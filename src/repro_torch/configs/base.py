@@ -2,9 +2,10 @@
 
 The dataclasses are the JAX package's (``repro/configs/base.py``) field for
 field, so ``reduced()`` gives the same shapes in both packages; only
-``dtype()``/``adtype()`` return ``torch.dtype``.  ``MoEConfig``,
-``MLAConfig`` and ``SSMConfig`` are data only here: no module of the port
-reads them yet.
+``dtype()``/``adtype()`` return ``torch.dtype``.  ``MoEConfig`` and
+``MLAConfig`` are read by the MoE family (``models/moe.py``,
+``models/mla.py``); ``SSMConfig`` is data only here: no module of the port
+reads it yet.
 """
 from __future__ import annotations
 

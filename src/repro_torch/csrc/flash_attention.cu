@@ -4,6 +4,10 @@
 //     o[b, s, h, :] = sum_t softmax_t(scale q[b, s, h, :] . k[b, t, h/G, :])
 //                     v[b, t, h/G, :]
 //
+// with a query/key head dim Dqk and a value head dim Dv: (64, 64), (128,
+// 128), and (192, 128), multi-head latent attention's expanded form
+// (deepseek-v2: 128 nope + 64 rope dims of q.k, 128 of v), where v is read
+// at its own width (no padding to 192).
 // over the unmasked t (causal: t <= s; window w > 0: t > s - w), with fp32
 // scores, fp32 running row maximum m, row sum l and accumulator, and the
 // output acc / max(l, 1e-30) rounded once to q's type.  It also writes m and
@@ -54,7 +58,9 @@
 //     through a ring of two stages filled by 16-byte cp.async copies: its
 //     tile i + 1 is in flight while tile i's products run.  Shared memory is
 //     q 16 KB + 2 groups x 2 stages x (K 16 + V 16) KB = 144 KB at Dh 128
-//     (one block an SM, 8 warps, 165 registers a thread).  Blocks of the
+//     and q 24 KB + 2 x 2 x (K 24 + V 16) KB = 184 KB (+ 1 KB to align) at
+//     (192, 128), where S takes twelve k16 steps and P V the same four
+//     m64n128k16 wgmmas as at 128 (one block an SM, 8 warps).  Blocks of the
 //     heaviest query tiles (most kv tiles under a causal mask) are launched
 //     first.  The output goes through the (by then free) q tile in shared
 //     memory so that it leaves in 16-byte stores.
@@ -65,12 +71,13 @@
 //     register tile of 8 query rows x 4 kv columns of S and 8 rows x Dh/16
 //     columns of O, fed by float4 reads from shared memory (12 reads per
 //     128 FMAs; rows padded by 16 bytes so that float4 reads of 8 rows hit 8
-//     different bank groups).  K and V have a buffer each, refilled in turn
+//     different bank groups; rows Dqk + 4 or Dv + 4 floats apart).  K and V
+//     have a buffer each, refilled in turn
 //     by 16-byte cp.async copies: K of tile j + 1 is in flight while P V of
 //     tile j runs, V of tile j + 1 while S of tile j + 1 runs.  P goes
 //     through shared memory.  72 KB of shared memory and at most 170
 //     registers at Dh 64 (bert-base), so three blocks share an SM and the
-//     federation's 384 blocks run in one wave.  Its exponentials are expf of
+//     federation's 384 blocks run in one wave; 151 KB at (192, 128).  Its exponentials are expf of
 //     the scaled score less m, as in the plain version.
 //
 // Both kernels: one block per (64 query rows, head h, batch b); q, k and v
@@ -296,31 +303,43 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int D>
+template <int DQK, int DV>
 __host__ __device__ constexpr int bf16_smem_bytes() {
   // q, the K/V rings, and room to align them to 1024 bytes
-  return (kBlockQ + kGroups * 2 * 2 * kBlockK) * D * 2 + 1024;
+  return (kBlockQ * DQK + kGroups * 2 * kBlockK * (DQK + DV)) * 2 + 1024;
 }
 
 // Copy rows [row0, row0 + 64) of a (sequence, D) bf16 slice with row stride
 // `stride` into a swizzled tile, with NT threads (thread `tid`); rows >=
-// n_rows are zero-filled.  A thread copies the same 16-byte piece of rows
-// tid / (D / 8) + i NT / (D / 8), so its swizzle is the same in every row.
+// n_rows are zero-filled.  Thread tid copies the 16-byte pieces tid + i NT
+// of the tile in row order, stepping its row, piece, source and
+// destination by NT pieces (D / 8 pieces a row: 24 at D 192).  Where NT
+// pieces are a whole number of 8-row groups, a thread keeps its piece and
+// its swizzle, and the destination steps by whole rows.
 template <int D, int NT>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* s,
                                                const __nv_bfloat16* g,
                                                long long stride, int row0,
                                                int n_rows, int tid) {
   constexpr int kChunks = D / 8;
-  constexpr int kRowStep = NT / kChunks;
-  const int r0 = tid / kChunks, c = tid % kChunks;
-  const __nv_bfloat16* src = g + (row0 + r0) * stride + c * 8;
-  __nv_bfloat16* dst = s + swz(r0, c);
+  constexpr int kPieces = kBlockK * kChunks;
+  constexpr bool kSameSwizzle = NT % (8 * kChunks) == 0;
+  static_assert(kPieces % NT == 0, "a tile's pieces split over NT");
+  int r = tid / kChunks, c = tid % kChunks, d = swz(r, c);
+  const __nv_bfloat16* src = g + (row0 + r) * stride + c * 8;
 #pragma unroll
-  for (int i = 0; i < kBlockK / kRowStep; ++i) {
-    const bool ok = row0 + r0 + i * kRowStep < n_rows;
-    cp_async16(dst + i * kRowStep * 64, ok ? src : g, ok ? 16 : 0);
-    src += kRowStep * stride;
+  for (int i = 0; i < kPieces / NT; ++i) {
+    const bool ok = row0 + r < n_rows;
+    cp_async16(s + d, ok ? src : g, ok ? 16 : 0);
+    r += NT / kChunks;
+    c += NT % kChunks;
+    src += (NT / kChunks) * stride + (NT % kChunks) * 8;
+    if (c >= kChunks) {
+      c -= kChunks;
+      ++r;
+      src += stride - kChunks * 8;
+    }
+    d = kSameSwizzle ? d + (NT / kChunks) * 64 : swz(r, c);
   }
 }
 
@@ -339,7 +358,7 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -348,11 +367,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       float* __restrict__ l_out, int Sq, int Sk, int H, int G,
                       Strides qs, Strides ks, Strides vs, float scale,
                       int causal, int window) {
-  constexpr int kKD = D / 16;        // k16 steps of q.k
-  constexpr int kND = D / 8;         // n8 tiles of the output
-  constexpr int kNS = kBlockK / 8;   // n8 tiles of S
-  constexpr int kKP = kBlockK / 16;  // k16 steps of P V
-  constexpr int kTile = kBlockK * D; // elements of a K or V tile
+  constexpr int kKD = DQK / 16;       // k16 steps of q.k
+  constexpr int kND = DV / 8;         // n8 tiles of the output
+  constexpr int kNS = kBlockK / 8;    // n8 tiles of S
+  constexpr int kKP = kBlockK / 16;   // k16 steps of P V
+  constexpr int kTileK = kBlockK * DQK;  // elements of a K tile
+  constexpr int kStage = kTileK + kBlockK * DV;  // a K tile and a V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // wgmma's swizzle needs 1024-byte aligned tiles
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(
@@ -371,14 +391,15 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vs.b + (h / G) * vs.h;
   const KvRange kr = kv_range(q0, Sq, Sk, causal, window);
   const int n_mine = (kr.count - wg + 1) / 2;  // this group's kv tiles
-  __nv_bfloat16* sk = sq + kBlockQ * D + wg * 4 * kTile;  // [2 stages][K, V]
+  // [2 stages][K, V]
+  __nv_bfloat16* sk = sq + kBlockQ * DQK + wg * 2 * kStage;
 
-  load_tile_bf16<D, kThreadsBf16>(sq, qb, qs.s, q0, Sq, tid);
+  load_tile_bf16<DQK, kThreadsBf16>(sq, qb, qs.s, q0, Sq, tid);
   cp_async_commit();
   if (n_mine > 0) {
     const int k0 = kr.first + wg * kBlockK;
-    load_tile_bf16<D, 128>(sk, kb, ks.s, k0, Sk, gt);
-    load_tile_bf16<D, 128>(sk + kTile, vb, vs.s, k0, Sk, gt);
+    load_tile_bf16<DQK, 128>(sk, kb, ks.s, k0, Sk, gt);
+    load_tile_bf16<DV, 128>(sk + kTileK, vb, vs.s, k0, Sk, gt);
   }
   cp_async_commit();
   cp_async_wait<1>();  // q has landed
@@ -396,12 +417,13 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int i = 0; i < n_mine; ++i) {
     const int k0 = kr.first + (wg + 2 * i) * kBlockK;
-    __nv_bfloat16* skt = sk + (i & 1) * 2 * kTile;
-    const __nv_bfloat16* svt = skt + kTile;
+    __nv_bfloat16* skt = sk + (i & 1) * kStage;
+    const __nv_bfloat16* svt = skt + kTileK;
     if (i + 1 < n_mine) {  // the group's next tile is copied under this one
-      __nv_bfloat16* nxt = sk + ((i + 1) & 1) * 2 * kTile;
-      load_tile_bf16<D, 128>(nxt, kb, ks.s, k0 + 2 * kBlockK, Sk, gt);
-      load_tile_bf16<D, 128>(nxt + kTile, vb, vs.s, k0 + 2 * kBlockK, Sk, gt);
+      __nv_bfloat16* nxt = sk + ((i + 1) & 1) * kStage;
+      load_tile_bf16<DQK, 128>(nxt, kb, ks.s, k0 + 2 * kBlockK, Sk, gt);
+      load_tile_bf16<DV, 128>(nxt + kTileK, vb, vs.s, k0 + 2 * kBlockK, Sk,
+                              gt);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -490,7 +512,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // merge: group 1 hands its (acc, m, l) to group 0 through its ring, each
   // value at (register, thread) so that the lanes read and write in order
-  float* xf = reinterpret_cast<float*>(sq + kBlockQ * D + 4 * kTile);
+  float* xf = reinterpret_cast<float*>(sq + kBlockQ * DQK + 2 * kStage);
   if (wg == 1) {
 #pragma unroll
     for (int n = 0; n < kND; ++n)
@@ -544,7 +566,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = p / kND, c = p % kND;
     const int qp = q0 + warp * 16 + r;
     if (qp < Sq)
-      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qp) * H + h) * D +
+      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + qp) * H + h) * DV +
                                 c * 8) =
           *reinterpret_cast<const uint4*>(so + swz(warp * 16 + r, c));
   }
@@ -571,48 +593,59 @@ __host__ __device__ constexpr int f32_ld() {
   return D + 4;  // rows 16 bytes apart in banks, 16-byte aligned
 }
 
-template <int D>
+template <int DQK, int DV>
 __host__ __device__ constexpr int f32_smem_bytes() {
-  return (3 * kBlockQ * f32_ld<D>() + kBlockQ * kLdP) * 4;  // q, K, V, P
+  return (2 * kBlockQ * f32_ld<DQK>() + kBlockK * f32_ld<DV>() +
+          kBlockQ * kLdP) * 4;  // q, K, V, P
 }
 
 // Copy rows [row0, row0 + 64) of a (sequence, D) f32 slice into a tile of
-// rows f32_ld<D>() apart; rows >= n_rows are zero-filled.
+// rows f32_ld<D>() apart; rows >= n_rows are zero-filled.  As in
+// load_tile_bf16, thread tid steps through the pieces tid + i kThreads of
+// the tile in row order (D / 4 pieces a row: 48 at D 192).
 template <int D>
 __device__ __forceinline__ void load_tile_f32(float* s, const float* g,
                                               long long stride, int row0,
                                               int n_rows) {
   constexpr int kChunks = D / 4;
-  constexpr int kRowStep = kThreads / kChunks;
-  const int r0 = (int)threadIdx.x / kChunks, c = (int)threadIdx.x % kChunks;
-  const float* src = g + (row0 + r0) * stride + c * 4;
-  float* dst = s + r0 * f32_ld<D>() + c * 4;
+  constexpr int kPieces = kBlockK * kChunks;
+  static_assert(kPieces % kThreads == 0, "a tile's pieces split evenly");
+  int r = (int)threadIdx.x / kChunks, c = (int)threadIdx.x % kChunks;
+  const float* src = g + (row0 + r) * stride + c * 4;
 #pragma unroll
-  for (int i = 0; i < kBlockK / kRowStep; ++i) {
-    const bool ok = row0 + r0 + i * kRowStep < n_rows;
-    cp_async16(dst + i * kRowStep * f32_ld<D>(), ok ? src : g, ok ? 16 : 0);
-    src += kRowStep * stride;
+  for (int i = 0; i < kPieces / kThreads; ++i) {
+    const bool ok = row0 + r < n_rows;
+    cp_async16(s + r * f32_ld<D>() + c * 4, ok ? src : g, ok ? 16 : 0);
+    r += kThreads / kChunks;
+    c += kThreads % kChunks;
+    src += (kThreads / kChunks) * stride + (kThreads % kChunks) * 4;
+    if (c >= kChunks) {
+      c -= kChunks;
+      ++r;
+      src += stride - kChunks * 4;
+    }
   }
 }
 
 // Dh 64 (bert-base) keeps three blocks on an SM: 72 KB of shared memory and
 // at most 170 registers each
-template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, DQK == 64 ? 3 : 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ m_out, float* __restrict__ l_out,
                      int Sq, int Sk, int H, int G, Strides qs, Strides ks,
                      Strides vs, float scale, int causal, int window) {
-  constexpr int LD = f32_ld<D>();
+  constexpr int LD = f32_ld<DQK>();   // q and K rows
+  constexpr int LDV = f32_ld<DV>();   // V rows
   constexpr int kRows = 8;        // query rows per thread: ty + 8 i
   constexpr int kCols = 4;        // kv columns per thread: tx + 16 j
-  constexpr int kOut = D / 64;    // float4 output groups: 4 tx + 64 c
+  constexpr int kOut = DV / 64;   // float4 output groups: 4 tx + 64 c
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                // [kBlockQ][LD]
   float* sk = sq + kBlockQ * LD;   // [kBlockK][LD]
-  float* sv = sk + kBlockK * LD;   // [kBlockK][LD]
-  float* sp = sv + kBlockK * LD;   // [kBlockQ][kLdP]
+  float* sv = sk + kBlockK * LD;   // [kBlockK][LDV]
+  float* sp = sv + kBlockK * LDV;  // [kBlockQ][kLdP]
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;  // a half warp shares ty
@@ -625,10 +658,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // K and V have a buffer each, refilled in turn: K of tile j + 1 is copied
   // while P V of tile j runs, V of tile j + 1 while S of tile j + 1 runs
-  load_tile_f32<D>(sq, qb, qs.s, q0, Sq);
-  if (kr.count > 0) load_tile_f32<D>(sk, kb, ks.s, kr.first, Sk);
+  load_tile_f32<DQK>(sq, qb, qs.s, q0, Sq);
+  if (kr.count > 0) load_tile_f32<DQK>(sk, kb, ks.s, kr.first, Sk);
   cp_async_commit();
-  if (kr.count > 0) load_tile_f32<D>(sv, vb, vs.s, kr.first, Sk);
+  if (kr.count > 0) load_tile_f32<DV>(sv, vb, vs.s, kr.first, Sk);
   cp_async_commit();
 
   float acc[kRows][4 * kOut];
@@ -653,7 +686,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < kCols; ++jj) s[i][jj] = 0.f;
 #pragma unroll 1
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       float4 qv[kRows], kv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -673,7 +706,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
     __syncthreads();  // K is free
-    if (more) load_tile_f32<D>(sk, kb, ks.s, k0 + kBlockK, Sk);
+    if (more) load_tile_f32<DQK>(sk, kb, ks.s, k0 + kBlockK, Sk);
     cp_async_commit();
 
     const bool masked = tile_needs_mask(k0, q0, Sk, causal, window);
@@ -724,7 +757,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float4 vv[kOut];
 #pragma unroll
         for (int c = 0; c < kOut; ++c)
-          vv[c] = *reinterpret_cast<const float4*>(sv + (kk + u) * LD +
+          vv[c] = *reinterpret_cast<const float4*>(sv + (kk + u) * LDV +
                                                    4 * tx + 64 * c);
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
@@ -741,7 +774,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();  // V and P are free
-    if (more) load_tile_f32<D>(sv, vb, vs.s, k0 + kBlockK, Sk);
+    if (more) load_tile_f32<DV>(sv, vb, vs.s, k0 + kBlockK, Sk);
     cp_async_commit();
   }
   cp_async_wait<0>();  // no copy outlives the block (q when no tile ran)
@@ -751,7 +784,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = q0 + ty + 8 * i;
     if (s >= Sq) continue;
     const float denom = fmaxf(l_i[i], 1e-30f);
-    float* orow = o + (((long long)b * Sq + s) * H + h) * D;
+    float* orow = o + (((long long)b * Sq + s) * H + h) * DV;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
       *reinterpret_cast<float4*>(orow + 4 * tx + 64 * c) = make_float4(
@@ -769,22 +802,23 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* m,
              void* l, int B, int Sq, int Sk, int H, int KV, Strides qs,
              Strides ks, Strides vs, float scale, int causal, int window,
              cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int bytes = kBf16 ? bf16_smem_bytes<D>() : f32_smem_bytes<D>();
+  constexpr int bytes =
+      kBf16 ? bf16_smem_bytes<DQK, DV>() : f32_smem_bytes<DQK, DV>();
   static bool attr_set = false;  // once per instantiation, before any capture
   if (!attr_set) {
     cudaError_t e;
     if constexpr (kBf16)
-      e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+      e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     else
-      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (e != cudaSuccess) return (int)e;
@@ -794,13 +828,13 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* m,
   // heaviest tiles start first
   const dim3 grid(H, B, (Sq + kBlockQ - 1) / kBlockQ);
   if constexpr (kBf16)
-    flash_fwd_bf16_kernel<D><<<grid, kThreadsBf16, bytes, stream>>>(
+    flash_fwd_bf16_kernel<DQK, DV><<<grid, kThreadsBf16, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(m),
         static_cast<float*>(l), Sq, Sk, H, H / KV, qs, ks, vs, scale, causal,
         window);
   else
-    flash_fwd_f32_kernel<D><<<grid, kThreads, bytes, stream>>>(
+    flash_fwd_f32_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(m),
         static_cast<float*>(l), Sq, Sk, H, H / KV, qs, ks, vs, scale, causal,
@@ -818,7 +852,7 @@ bool aligned16(const void* p, long long sb, long long ss, long long sh,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* m,
-           void* l, int B, int Sq, int Sk, int H, int KV, int D,
+           void* l, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
            long long q_sb, long long q_ss, long long q_sh, long long k_sb,
            long long k_ss, long long k_sh, long long v_sb, long long v_ss,
            long long v_sh, float scale, int causal, int window,
@@ -836,34 +870,40 @@ int launch(const void* q, const void* k, const void* v, void* o, void* m,
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_d<T, 64>(q, k, v, o, m, l, B, Sq, Sk, H, KV, qs, ks, vs,
-                           scale, causal, window, s);
-  if (D == 128)
-    return launch_d<T, 128>(q, k, v, o, m, l, B, Sq, Sk, H, KV, qs, ks, vs,
-                            scale, causal, window, s);
+  if (D == 64 && Dv == 64)
+    return launch_d<T, 64, 64>(q, k, v, o, m, l, B, Sq, Sk, H, KV, qs, ks,
+                               vs, scale, causal, window, s);
+  if (D == 128 && Dv == 128)
+    return launch_d<T, 128, 128>(q, k, v, o, m, l, B, Sq, Sk, H, KV, qs, ks,
+                                 vs, scale, causal, window, s);
+  if (D == 192 && Dv == 128)
+    return launch_d<T, 192, 128>(q, k, v, o, m, l, B, Sq, Sk, H, KV, qs, ks,
+                                 vs, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes.  q (B, Sq, H, D), k and v (B, Sk, KV, D)
-// are device pointers read with the given element strides of their batch,
-// sequence and head dimensions; the last dimension is contiguous, and the
-// pointers and strides are whole 16-byte pieces.  o is a contiguous (B, Sq,
-// H, D) tensor of q's type; m and l are contiguous fp32 (B, H, Sq).  D is 64
-// or 128 and H a multiple of KV.  window <= 0 means no window.  Returns the
+// C interface, loaded with ctypes.  q (B, Sq, H, D), k (B, Sk, KV, D) and v
+// (B, Sk, KV, Dv) are device pointers read with the given element strides of
+// their batch, sequence and head dimensions; the last dimension is
+// contiguous, and the pointers and strides are whole 16-byte pieces.  o is a
+// contiguous (B, Sq, H, Dv) tensor of q's type; m and l are contiguous fp32
+// (B, H, Sq).  (D, Dv) is (64, 64), (128, 128) or (192, 128), and H a
+// multiple of KV.  window <= 0 means no window.  Returns the
 // launch's cudaGetLastError() (or the error of setting the kernel's
 // shared-memory size, or cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // for arguments it does not take).
 #define FLASH_C_API(NAME, T)                                                  \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
                       void* m, void* l, int B, int Sq, int Sk, int H, int KV, \
-                      int D, long long q_sb, long long q_ss, long long q_sh,  \
+                      int D, int Dv, long long q_sb, long long q_ss,          \
+                      long long q_sh,                                         \
                       long long k_sb, long long k_ss, long long k_sh,         \
                       long long v_sb, long long v_ss, long long v_sh,         \
                       float scale, int causal, int window, void* stream) {    \
-    return launch<T>(q, k, v, o, m, l, B, Sq, Sk, H, KV, D, q_sb, q_ss, q_sh, \
+    return launch<T>(q, k, v, o, m, l, B, Sq, Sk, H, KV, D, Dv, q_sb, q_ss,   \
+                     q_sh,                                                    \
                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,       \
                      window, stream);                                         \
   }

@@ -25,12 +25,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, attend_mask,
                                                      attention_ref)
 
-HEAD_DIMS = (64, 128)
+# (query/key head dim, value head dim) pairs the kernel takes: the dense
+# models' 64 and 128, and multi-head latent attention's expanded form
+# (deepseek-v2: 128 nope + 64 rope dims of q.k, v 128)
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
 BWD_CHUNK = 256        # kv rows per backward chunk: bounds its fp32 blocks
 _SOURCES = ("flash_attention.cu",)
 _FUNCS = {torch.bfloat16: "flash_attention_fwd_bf16",
           torch.float32: "flash_attention_fwd_f32"}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -42,7 +45,8 @@ def library() -> ctypes.CDLL:
 
 
 def _check_shapes(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     B, _, H, Dh = q.shape
@@ -53,11 +57,12 @@ def _check_shapes(q, k, v):
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool, window: int, scale: float):
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> ``(o, m, l)``: o (B, Sq,
-    H, Dh) in q's dtype, m and l (B, H, Sq) fp32 on CUDA (the accumulation
-    dtype on the CPU).  No gradient.
+    """q: (B, Sq, H, Dh); k: (B, Sk, KV, Dh); v: (B, Sk, KV, Dv) -> ``(o,
+    m, l)``: o (B, Sq, H, Dv) in q's dtype, m and l (B, H, Sq) fp32 on CUDA
+    (the accumulation dtype on the CPU).  No gradient.
 
-    On CUDA: bf16 or f32, q, k and v of one dtype and device, Dh 64 or 128,
+    On CUDA: bf16 or f32, q, k and v of one dtype and device, (Dh, Dv) one
+    of ``HEAD_DIMS`` ((64, 64), (128, 128), (192, 128)),
     the last dimension contiguous (the others are read with their
     strides), base pointers 16-byte aligned and strides whole 16-byte
     pieces (the kernel copies tiles in 16-byte pieces), and every query
@@ -84,10 +89,10 @@ def _launch(q, k, v, causal, window, scale):
             raise TypeError(f"flash_attention: {name} is {t.dtype} on "
                             f"{t.device}, q is {q.dtype} on {q.device}")
     B, Sq, H, Dh = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim in "
-                         f"{HEAD_DIMS}, got {Dh}")
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (Dh, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes (head dim, value "
+                         f"head dim) in {sorted(HEAD_DIMS)}, got {(Dh, Dv)}")
     if window > 0 and Sq >= Sk + window:
         # query rows >= Sk + window - 1 see no key: the plain version gives
         # them the mean of v (its finite NEG_INF), the kernel o = 0 and l = 0
@@ -104,7 +109,7 @@ def _launch(q, k, v, causal, window, scale):
                              f"aligned (pointer {t.data_ptr() % 16} bytes "
                              f"off, strides {t.stride()[:3]} not multiples "
                              f"of {vec})")
-    o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -113,13 +118,13 @@ def _launch(q, k, v, causal, window, scale):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 m.data_ptr(), l.data_ptr(), B, Sq, Sk, H, KV, Dh,
+                 m.data_ptr(), l.data_ptr(), B, Sq, Sk, H, KV, Dh, Dv,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  float(scale), int(bool(causal)), int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, KV={KV}, "
-                           f"Dh={Dh}, {q.dtype})")
+                           f"Dh={Dh}, Dv={Dv}, {q.dtype})")
     flash_attention_fwd.launches += 1
     return o, m, l
 
@@ -133,19 +138,19 @@ def attention_bwd(q, k, v, o, m, l, do, *, causal: bool, window: int,
     The steps of the JAX package's ``_chunked_attn_bwd``, in the
     accumulation dtype, each gradient rounded once to its input's dtype."""
     B, Sq, H, Dh = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     acc_dt = torch.promote_types(q.dtype, torch.float32)
     dev = q.device
     qf = q.reshape(B, Sq, KV, G, Dh).to(acc_dt)
-    dof = do.reshape(B, Sq, KV, G, Dh).to(acc_dt)
-    of = o.reshape(B, Sq, KV, G, Dh).to(acc_dt)
+    dof = do.reshape(B, Sq, KV, G, Dv).to(acc_dt)
+    of = o.reshape(B, Sq, KV, G, Dv).to(acc_dt)
     mm = m.reshape(B, KV, G, Sq).to(acc_dt)
     ll = l.reshape(B, KV, G, Sq).to(acc_dt).clamp_min(1e-30)
     dsum = torch.einsum("bqkgd,bqkgd->bkgq", dof, of)
     dq = torch.zeros_like(qf)
     dk = torch.empty((B, Sk, KV, Dh), dtype=acc_dt, device=dev)
-    dv = torch.empty((B, Sk, KV, Dh), dtype=acc_dt, device=dev)
+    dv = torch.empty((B, Sk, KV, Dv), dtype=acc_dt, device=dev)
     q_pos = torch.arange(Sq, device=dev)
     for c0 in range(0, Sk, chunk):
         kc = k[:, c0:c0 + chunk].to(acc_dt)
@@ -185,8 +190,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     kv_valid=None, scale=None):
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> (B, Sq, H, Dh), with a
-    gradient for q, k and v.
+    """q: (B, Sq, H, Dh); k: (B, Sk, KV, Dh); v: (B, Sk, KV, Dv) -> (B,
+    Sq, H, Dv), with a gradient for q, k and v.
 
     The training/prefill case only (``q_offset`` 0, the whole of k valid),
     as in the JAX package; decode attention runs the einsum path of

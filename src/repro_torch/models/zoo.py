@@ -3,7 +3,8 @@
 (:func:`loss_fn`, :func:`per_example_ce`, :func:`classification_loss`).
 
 The counterpart of the JAX package's ``repro/models/zoo.py`` for the dense
-family.  Every other family waits for later slices (ROADMAP.md, queue 1).
+and MoE families (both through ``models/transformer.py``).  The hybrid,
+ssm, audio and vlm families wait for later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -31,10 +32,9 @@ def _lm_decode(cfg, frozen, lora, cache, batch, **opts):
                                       batch["tokens"], **opts)
 
 
-_FAMILIES = {
-    "dense": Model(transformer.lm_specs, _lm_forward,
-                   transformer.lm_cache_specs, _lm_decode),
-}
+_LM = Model(transformer.lm_specs, _lm_forward, transformer.lm_cache_specs,
+            _lm_decode)
+_FAMILIES = {"dense": _LM, "moe": _LM}
 
 
 def get_model(cfg: ArchConfig) -> Model:

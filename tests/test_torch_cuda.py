@@ -707,6 +707,45 @@ def test_flash_bf16_d128_holds_under_other_seeds(cuda, case, seed):
     assert (l - rl).abs().max() <= 1e-5 * rl.abs().max()
 
 
+@pytest.mark.parametrize("S", [64, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_kernel_takes_mla_head_dims(cuda, dtype, S):
+    """Multi-head latent attention's expanded form (deepseek-v2): q and k
+    of head dim 192, v of 128, read at its own width.  The forward and the
+    gradient against the plain version at the tolerances of the cases
+    above; a pair the kernel has no instantiation for is refused."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k = (torch.randn(2, S, 8, 192, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn(2, S, 8, 128, generator=g, device=cuda).to(dtype)
+    n0 = fa_ops.flash_attention_fwd.launches
+    o, m, l = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=0,
+                                         scale=192 ** -0.5)
+    assert fa_ops.flash_attention_fwd.launches == n0 + 1
+    ro, rm, rl = attention_ref(q, k, v, causal=True, window=0)
+    assert o.shape == (2, S, 8, 128) and o.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert (o.float() - ro.float()).abs().max() <= tol * ro.float().abs().max()
+    assert (m - rm).abs().max() <= 1e-5 * rm.abs().max()
+    assert (l - rl).abs().max() <= 1e-5 * rl.abs().max()
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa_ops.flash_attention(*leaves, causal=True),
+                              leaves, do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*plain, causal=True)[0], plain,
+                               do)
+    gtol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a.float() - b.float()).abs().max() <= \
+            gtol * b.float().abs().max()
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention_fwd(q, k, v[..., :64].contiguous(),
+                                   causal=True, window=0, scale=1.0)
+
+
 def test_flash_kernel_reads_strided_heads(cuda):
     """q, k and v sliced out of larger tensors (every other head, as a
     view): the kernel reads them in place with their strides."""

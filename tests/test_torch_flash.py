@@ -180,3 +180,45 @@ def test_gqa_attention_routes_the_cache_free_case_only():
         ops.flash_attention(q, k, v, q_offset=1)
     with pytest.raises(ValueError, match="multiple"):
         ops.flash_attention(q[:, :, :3], k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_value_head_dim_differs_from_query_head_dim(dtype):
+    """Multi-head latent attention's expanded form at reduced deepseek-v2
+    width: q and k of head dim 48 (32 nope + 16 rope), v of 32.  The
+    forward of ``ops.flash_attention`` (the plain version on the CPU)
+    against the JAX package's ``gqa_attention`` (which its ``mla_full``
+    calls), and the Function's gradient (``attention_bwd``, carrying Dv)
+    against ``jax.vjp`` of it at a chunk below the length and against
+    autograd through the plain version: f64 to 1e-10, f32 to 1e-5 of each
+    one's scale."""
+    B, S, H, KV, Dqk, Dv = 2, 40, 4, 4, 48, 32
+    rng = np.random.default_rng(12)
+    q, k = (rng.normal(size=(B, S, H, Dqk)).astype(dtype) for _ in range(2))
+    v = rng.normal(size=(B, S, KV, Dv)).astype(dtype)
+    do = rng.normal(size=(B, S, H, Dv)).astype(dtype)
+    with jax.enable_x64(dtype == "float64"):
+        out, vjp = jax.vjp(lambda a, b, c: jc.gqa_attention(
+            a, b, c, causal=True, chunk=8),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+        direct = np.asarray(jc.gqa_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+        out = np.asarray(out)
+    rtol = 1e-10 if dtype == "float64" else 1e-5
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = ops.flash_attention(*leaves, causal=True)
+    assert o.shape == (B, S, H, Dv)
+    got = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    _close(o.detach(), out, rtol)
+    _close(o.detach(), direct, rtol)
+    plain = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    auto = torch.autograd.grad(attention_ref(*plain, causal=True)[0], plain,
+                               torch.from_numpy(do))
+    for a, b, c in zip(got, want, auto):
+        assert a.dtype == getattr(torch, dtype) and a.shape == c.shape
+        _close(a, b, rtol)
+        _close(a, c.detach(), rtol)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_attention(leaves[0], leaves[1], leaves[2][:, :, :2],
+                            causal=True)

@@ -34,9 +34,10 @@ def test_config_matches_jax_field_by_field(reduced):
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("grok-1-314b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.get_model(CFG.with_(family="moe"))
+        get_config("jamba-v0.1-52b")
+    for family in ("hybrid", "ssm", "audio", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            zoo.get_model(CFG.with_(family=family))
 
 
 def _leaves(tree, prefix=()):
@@ -110,6 +111,33 @@ def test_bridge_round_trips_a_jax_tree_bit_exactly():
     np.testing.assert_array_equal(
         params["frozen"]["blocks"][1]["attn"]["wq"].numpy(),
         frozen_np["blocks"]["attn"]["wq"][1])
+    back_frozen, back_lora = params_to_jax_numpy(params)
+    for want, got in ((frozen_np, back_frozen), (lora_np, back_lora)):
+        w_leaves, w_def = jax.tree_util.tree_flatten(want)
+        g_leaves, g_def = jax.tree_util.tree_flatten(got)
+        assert w_def == g_def
+        for a, b in zip(w_leaves, g_leaves):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_bridge_round_trips_a_tree_with_a_prefix_bit_exactly():
+    """deepseek-v2 (reduced, 3 layers): its dense first layer is a list
+    under ``"prefix"`` in both packages; JAX -> port -> JAX is bit-equal,
+    frozen and LoRA, and ``"blocks"`` holds the other 2 layers."""
+    cfg = get_config("deepseek-v2-236b").reduced().with_(num_layers=3)
+    jcfg = jax_get_config("deepseek-v2-236b").reduced().with_(num_layers=3)
+    jp = jax_init_tree(jax_zoo.get_model(jcfg).specs(jcfg),
+                       jax.random.PRNGKey(6), jcfg.dtype())
+    frozen_np = jax.tree_util.tree_map(np.asarray, jp["frozen"])
+    lora_np = jax.tree_util.tree_map(
+        lambda a: np.random.default_rng(1).normal(size=a.shape).astype(
+            np.float32), jp["lora"])
+    params = params_from_jax_numpy(cfg, frozen_np, lora_np, device="cpu")
+    assert len(params["frozen"]["prefix"]) == 1
+    assert len(params["frozen"]["blocks"]) == 2
+    assert "mlp" in params["frozen"]["prefix"][0]
+    assert "moe" in params["frozen"]["blocks"][1]
     back_frozen, back_lora = params_to_jax_numpy(params)
     for want, got in ((frozen_np, back_frozen), (lora_np, back_lora)):
         w_leaves, w_def = jax.tree_util.tree_flatten(want)
