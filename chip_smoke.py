@@ -11,7 +11,9 @@ decoder (full-width olmo-1b), then the federation with update screening
 with registry-backed client populations (``run(population=
 PopulationConfig(...))``) inside telemetry sessions, and the MoE family
 (grok-1; deepseek-v2 with multi-head latent attention) serving and
-training through ELSA's channel at full width, depth cut.
+training through ELSA's channel at full width, depth cut; then the
+analysis and dry-run layer (``repro_torch.analysis``,
+``repro_torch.launch.dryrun``) over those paths.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --channel-times-of CHECKOUT
@@ -59,7 +61,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 5. serving: full llama3-8b (32 layers, bf16, random weights from a seed) in
    ``ServingEngine`` through the kernel, then ``swap_adapter`` and a second
    batch; the kernel's launch count must be 4 projections x 32 layers x ticks;
-6. where the time goes: a ``torch.profiler`` window over decode ticks;
+6. where the time goes: a ``torch.profiler`` window over decode ticks
+   (``repro_torch.analysis.breakdown.device_breakdown``, as in 9 and 10);
 7. training parity: one ``make_train_step`` step of full-width olmo-1b (f32,
    4 layers) through the channel, kernel path against plain path, checked
    over the tree and in each block with soft attention, reported at the
@@ -150,11 +153,30 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 11. every LoRA shape that phases 5, 8, 10, 10r, 13, 14, 15, 16, 12 and 17
    launched (recorded while they ran, with their pointers' alignment)
    against the plain version at phase 3's tolerances, so every kernel
-   instantiation a path ran is held.
+   instantiation a path ran is held;
+18. analysis and dry run: (a) ``python -m repro_torch.launch.dryrun --arch
+   A --elsa`` on the meta device for each assigned architecture, each in a
+   process of its own started after phase 1 (no card, one thread) and
+   waited for at the end of phase 2, so that their host time overlaps the
+   build: every record ``ok``, or ``skipped`` for ``skip_reason``'s
+   reason; the roofline table; (b) phase 8's olmo-1b ``--elsa`` step
+   counted on the card (``repro_torch.analysis.op_cost``) and on meta:
+   flops, bytes and each kernel's calls and declared work equal, the calls
+   the launches phase 8 counts; (c) the dry run's peak of that step and of
+   a llama3-8b tick (batch 8, cache 128) within 10% of
+   ``torch.cuda.max_memory_allocated()`` of the same work; (d) the device
+   breakdowns (busy, profiled wall, idle share, top 10 ops, the 5 longest
+   idle gaps and the host ops open across them) of an olmo-1b step (phase
+   9), a bert-base ``run_clients`` call (10), a causal-LM ``run_clients``
+   call (12) and grok-1's serving ticks (17); (e) the olmo-1b step's and
+   the bert-base client step's model flops over busy x peak and wall x
+   peak, and the counted roofline step over busy.
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository beside it, the script fails before printing either.
+The kernels' bound columns are ``repro_torch.analysis.roofline.bound_ms``
+of each kernel's declared ``work``.  The second-to-last line is the
+kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the repository beside it, the script
+fails before printing either.
 """
 from __future__ import annotations
 
@@ -180,7 +202,10 @@ sys.path.insert(0, SRC)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import op_cost, roofline  # noqa: E402
+from repro_torch.analysis.breakdown import device_breakdown  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import split_training  # noqa: E402
 from repro_torch.core.sketch import (SketchPlan, make_plan,  # noqa: E402
                                      selection_matrices)
@@ -196,7 +221,7 @@ from repro_torch.kernels.lora import ops as lora_ops  # noqa: E402
 from repro_torch.kernels.lora.ref import lora_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssop import ops as ssop_ops  # noqa: E402
 from repro_torch.kernels.ssop.ref import ssop_apply_ref  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import dryrun, train  # noqa: E402
 from repro_torch.launch.train import make_serve_step  # noqa: E402
 from repro_torch.models import common, transformer, zoo  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -212,10 +237,6 @@ from repro_torch.federation.topology import (make_churn_trace,  # noqa: E402
 from repro_torch.runtime import RuntimeConfig  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12,    # tensor cores
-              torch.float32: 67e12}      # CUDA cores (TF32 is off)
 L2_BYTES = 50 * 2 ** 20
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -304,15 +325,6 @@ def _library_lora(x, w, a, b, s):
     return x @ w + s * ((x @ a) @ b)
 
 
-def _bound(T, K, O, r, dtype):
-    el = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (T * K + K * O + K * r + r * O + T * O) * el
-    flops = 2 * T * K * O + 2 * T * K * r + 2 * T * r * O
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def kernel_phase():
     """bf16: max abs error <= 2^-7 * max|y_plain|; f32: <= 1e-5 *
     max|y_plain| (rtol 1e-5 against the output's scale).  Both sides
@@ -358,7 +370,8 @@ def kernel_phase():
             ms = _time_ms(lora_ops.lora_matmul, sets)
             plain_ms = _time_ms(lora_matmul_ref, sets)
             lib_ms = _time_ms(_library_lora, sets)
-            bound_ms, bound_by = _bound(T, K, O, r, dtype)
+            bound_ms, bound_by = roofline.bound_ms(
+                *lora_ops.work(T, K, O, r, dtype), dtype)
             route = _lora_route(T, K, O, r, dtype)
             row = dict(shape=name, T=T, K=K, O=O, r=r,
                        dtype=str(dtype).removeprefix("torch."),
@@ -490,33 +503,12 @@ def lora_cut_sweep():
 # 3b. the channel's kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _channel_bound(op, T, D, r, Y, Z, dtype):
-    """Least time for the op's work: each input read once and each output
-    written once at 3.35 TB/s, or its operations at the dtype's peak,
-    whichever is larger."""
-    nbytes, ops = _channel_work(op, T, D, r, Y, Z, dtype)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def _channel_work(op, T, D, r, Y, Z, dtype):
-    """(bytes, operations) of the op: each input read once and each output
-    written once.  Plan arrays (ptr, idx, bucket, sign) are 4 bytes an
-    entry; the gather needs only the packed index (Y D entries)."""
-    el = torch.tensor([], dtype=dtype).element_size()
-    TD, TYZ, YD, ptr = T * D, T * Y * Z, Y * D, Y * Z + 1
-    ssop = ((2 * TD + D * r + r * r) * el, 4 * TD * r + 2 * T * r * r)
-    nbytes, ops = {
-        "ssop forward": ssop,
-        "ssop backward": ssop,
-        "compress": ((TD + TYZ) * el + (ptr + 2 * YD) * 4, 2 * T * YD),
-        "median backward": ((TD + 2 * TYZ) * el + (ptr + 3 * YD) * 4,
-                            2 * T * YD),
-        "decompress": ((TYZ + TD) * el + YD * 4, TD * Y * Y),
-        "compress backward": ((TYZ + TD) * el + YD * 4, 2 * T * YD),
-    }[op]
-    return nbytes, ops
+    """(operations, bytes) of the channel op, as its kernel declares them
+    (``ssop_ops.work``, ``cs_ops.work``)."""
+    if op.startswith("ssop"):
+        return ssop_ops.work(T, D, r, dtype)
+    return cs_ops.work(op, T, D, Y, Z, dtype)
 
 
 # (case, T, D, r, Y, Z): olmo-1b's channel (the launcher's 8 x 64 tokens;
@@ -648,10 +640,10 @@ def channel_kernel_phase():
                     row["ms"] = _time_ms(fn, sets)
                     row["plain_ms"] = _time_ms(plain, sets)
                     row["library_ms"] = _time_ms(lib, sets) if lib else None
-                    row["bound_ms"], row["bound_by"] = _channel_bound(
-                        op, T, D, r, Y, Z, dtype)
+                    row["bound_ms"], row["bound_by"] = roofline.bound_ms(
+                        *_channel_work(op, T, D, r, Y, Z, dtype), dtype)
                     row["copy_ms"] = _copy_ms(got)
-                    nbytes = _channel_work(op, T, D, r, Y, Z, dtype)[0]
+                    nbytes = _channel_work(op, T, D, r, Y, Z, dtype)[1]
                     row["bytes_copy_ms"] = _copy_ms(torch.empty(
                         nbytes // (2 * got.element_size()), dtype=dtype,
                         device="cuda"))
@@ -944,34 +936,6 @@ def _head_dims(Dh):
     return Dh if isinstance(Dh, tuple) else (Dh, Dh)
 
 
-def _attended_pairs(S, causal, window):
-    """Unmasked (query, key) pairs of one head: the work this run's masks
-    leave (a kernel that skips masked tiles need do no more)."""
-    q = np.arange(S)[:, None]
-    k = np.arange(S)[None, :]
-    keep = np.ones((S, S), bool)
-    if causal:
-        keep &= k <= q
-    if window:
-        keep &= k > q - window
-    return int(keep.sum())
-
-
-def _flash_bound(B, S, H, KV, Dh, dtype, causal, window):
-    """Bytes: q (B S H Dqk) and o (B S H Dv), k (B S KV Dqk) and v (B S
-    KV Dv) read or written once, m and l (B H S fp32).  Operations:
-    2 (Dqk + Dv) per attended pair and head (q·k and p·v), at the bf16
-    tensor-core peak for bf16 and the CUDA-core fp32 peak for f32 (the
-    kernel takes no TF32)."""
-    Dqk, Dv = _head_dims(Dh)
-    el = torch.tensor([], dtype=dtype).element_size()
-    nbytes = ((B * S * H + B * S * KV) * (Dqk + Dv)) * el + 8 * B * H * S
-    ops = 2 * (Dqk + Dv) * B * H * _attended_pairs(S, causal, window)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def _sdpa(q, k, v, causal, window):
     """``torch.nn.functional.scaled_dot_product_attention`` on the same
     inputs (the library yardstick; the port never calls it)."""
@@ -1073,8 +1037,8 @@ def flash_kernel_phase():
             a, b, c, causal=causal, window=window), sets, iters=iters)
         row["library_ms"] = _time_ms(
             lambda a, b, c: _sdpa(a, b, c, causal, window), sets, iters=iters)
-        row["bound_ms"], row["bound_by"] = _flash_bound(
-            B, S, H, KV, Dh, dtype, causal, window)
+        row["bound_ms"], row["bound_by"] = roofline.bound_ms(*fa_ops.work(
+            B, S, S, H, KV, Dqk, Dv, dtype, causal, window), dtype)
         bwd_sets = []
         for a, b, c in sets:
             fo, fm, fl = fa_ops.flash_attention_fwd(
@@ -1243,33 +1207,6 @@ def serving_phase(cfg, params):
 # 6. where the time goes
 # ---------------------------------------------------------------------------
 
-def _profile_one(one, trace_name, per=1):
-    """``one()`` under ``torch.profiler``: the device time of each kernel
-    as ``[(us, count, name)]`` divided by ``per`` (the steps ``one``
-    runs), largest first, and the device busy time (ms, also per step);
-    prints the top 15 and writes the trace to ``OUT_DIR``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one()
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue                                  # CPU ops: no double count
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us / per, ev.count / per, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
-    for us, n, key in rows[:15]:
-        print(f"  {us / 1e3:8.3f} ms {us / 1e3 / busy_ms:6.1%}  {n:5.0f}x  "
-              f"{key[:80]}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
-    return rows, busy_ms
-
-
 def _our_kernels_ms(rows):
     return {k: sum(us for us, _, key in rows if k in key) / 1e3
             for k in ("lora_matmul", "ssop", "sketch_scatter",
@@ -1301,8 +1238,9 @@ def profile_phase(cfg, params, n_ticks=8):
     run(fresh())
     wall_ms = (time.time() - t0) * 1e3 / n_ticks
     print(f"profile ({cfg.name}, batch 8, {n_ticks} ticks), per tick:")
-    rows, busy_ms = _profile_one(lambda: run(fresh()), "decode_trace.json",
-                                 per=n_ticks)
+    bd = device_breakdown(lambda: run(fresh()), per=n_ticks,
+                          trace=os.path.join(OUT_DIR, "decode_trace.json"))
+    rows, busy_ms = bd["rows"], bd["busy_ms"]
     print(f"  wall {wall_ms:.2f} ms/tick without the profiler, device busy "
           f"{busy_ms:.2f} ms/tick -> idle share {1 - busy_ms / wall_ms:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels/tick")
@@ -1733,7 +1671,9 @@ def train_profile_phase(n_wall=5):
         one()
         walls.append((time.time() - t0) * 1e3)
     wall_ms = statistics.median(walls)
-    rows, busy_ms = _profile_one(one, "train_trace.json")
+    bd = device_breakdown(one, trace=os.path.join(OUT_DIR,
+                                                  "train_trace.json"))
+    rows, busy_ms = bd["rows"], bd["busy_ms"]
     print(f"profile (olmo-1b, batch 8 x 64, --elsa, one step): wall "
           f"{wall_ms:.2f} ms without the profiler (steps {walls}), device "
           f"busy {busy_ms:.2f} ms -> idle share {1 - busy_ms / wall_ms:.1%}, "
@@ -1745,6 +1685,7 @@ def train_profile_phase(n_wall=5):
     del params, lora, state
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, walls_ms=walls, device_busy_ms=busy_ms,
+                breakdown=bd,
                 channel_build_ms=build_ms, plan_build_ms=plan_ms,
                 idle_share=1 - busy_ms / wall_ms,
                 kernels=sum(r[1] for r in rows),
@@ -1995,14 +1936,16 @@ def federation_phase():
     prof_wall = statistics.median(walls)
     print(f"  profile of one run_clients call ({len(members)} clients x 1 "
           f"step), per client step:")
-    rows, busy = _profile_one(one, "federation_batched_trace.json",
-                              per=len(members))
+    bd = device_breakdown(one, per=len(members), trace=os.path.join(
+        OUT_DIR, "federation_batched_trace.json"))
+    rows, busy = bd["rows"], bd["busy_ms"]
     print(f"  wall {prof_wall:.2f} ms a client step without the profiler "
           f"(calls {[round(w, 1) for w in walls]}), device busy {busy:.2f} "
           f"ms -> idle share {1 - busy / prof_wall:.1%}, "
           f"{sum(r[1] for r in rows):.0f} kernels; host syncs of the call "
           f"{prof_syncs}")
     print(f"  the port's kernels, ms a client step: {_our_kernels_ms(rows)}")
+    counted, _ = op_cost.count(one)       # the same call's work (phase 18e)
     out = dict(backend=fed.backend,
                groups={str(k): v for k, v in groups.items()},
                excluded=excluded, trust=list(map(float, trust)),
@@ -2018,6 +1961,10 @@ def federation_phase():
                profile=dict(
                    clients=len(members), wall_ms=prof_wall, walls_ms=walls,
                    device_busy_ms=busy, idle_share=1 - busy / prof_wall,
+                   breakdown=bd, counted=dict(
+                       flops=counted.cost.flops / len(members),
+                       bytes=counted.cost.bytes / len(members),
+                       kernels=counted.kernels),
                    syncs=prof_syncs, kernels=sum(r[1] for r in rows),
                    our_kernels_ms=_our_kernels_ms(rows),
                    top_kernels=[dict(ms=us / 1e3, count=c, name=key)
@@ -2125,7 +2072,9 @@ def federation_reference_phase():
     prof_wall = statistics.median(walls)
     print(f"  profile of one client step (client {n}, split "
           f"{fed.split_for(n)}):")
-    rows, busy = _profile_one(one, "federation_step_trace.json")
+    bd = device_breakdown(one, trace=os.path.join(
+        OUT_DIR, "federation_step_trace.json"))
+    rows, busy = bd["rows"], bd["busy_ms"]
     print(f"  wall {prof_wall:.2f} ms without the profiler (steps "
           f"{[round(w, 1) for w in walls]}), device busy {busy:.2f} ms -> "
           f"idle share {1 - busy / prof_wall:.1%}, "
@@ -3155,6 +3104,21 @@ def causal_lm_federation_phase():
                                            * calls[-1]["steps"])
                                   for k, v in calls[-1]["launches"].items()},
                launches=counts, peak_gib=peak, base_gib=base / 2 ** 30)
+
+    # where a client step's time goes (phase 18d): one run_clients call of
+    # every assigned client for one step, each on its first 8 examples
+    members = sorted(n for g in groups.values() for n in g)
+    splits = {n: fed.split_for(n) for n in members}
+    channels = {n: fed.channel_for(n, fed.lora0) for n in members}
+    batches = {n: [(fed.data[n].tokens[:8], fed.data[n].labels[:8])]
+               for n in members}
+
+    def one():
+        fed.engine.run_clients(fed.last_theta, members, splits, channels,
+                               batches)
+
+    one()
+    out["breakdown"] = device_breakdown(one, per=len(members), show=False)
     del fed
     torch.cuda.empty_cache()
     return out, counts
@@ -3325,12 +3289,23 @@ def _moe_serving(arch, cfg, frozen, lora, gen):
                  for t in tree_leaves(frozen) + tree_leaves(fresh))
     emb = frozen["embed"]
     nbytes -= (emb.shape[0] - 8) * emb.shape[1] * emb.element_size()
-    floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    floor_ms = nbytes / roofline.HBM_BW * 1e3
     out = dict(ticks=ticks, tokens=tokens, decode_s=dt,
                tokens_per_s=tokens / dt, ms_per_tick=dt / ticks * 1e3,
                floor_ms_per_tick=floor_ms, weight_bytes=nbytes,
                lora_launches_per_tick=counts["lora_matmul"] / ticks,
                launches=counts)
+
+    # where a tick's time goes (phase 18d): 8 requests of 4 prompt and 4
+    # new tokens, once for the ticks they take, once under the profiler
+    def batch_of_8():
+        for n in range(8):
+            engine.submit([1 + n, 2, 3, 4], max_new_tokens=4)
+        engine.run_until_drained()
+    ticks0 = engine.stats["ticks"]
+    batch_of_8()
+    out["breakdown"] = device_breakdown(
+        batch_of_8, per=engine.stats["ticks"] - ticks0, show=False)
     print(f"{arch} serving ({cfg.num_layers} layers, bf16): 16 requests in "
           f"2 batches, {ticks} ticks, {tokens} tokens in {dt:.3f}s -> "
           f"{tokens / dt:.1f} tokens/s, {dt / ticks * 1e3:.2f} ms/tick "
@@ -3424,6 +3399,252 @@ def moe_family_phase():
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# 18. analysis and dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = os.path.join(OUT_DIR, "dryrun")
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun --arch A --elsa`` on the meta
+    device for each assigned architecture A, each in a process of its own
+    (no card: ``CUDA_VISIBLE_DEVICES`` is empty; one thread), started with
+    the script so that their host minutes overlap the build; they are
+    waited for before phase 3, so no timed phase shares the host with
+    them.  Returns ``[(arch, process, log file)]``."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": SRC, "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch in dryrun.ASSIGNED:
+        log = open(os.path.join(DRYRUN_DIR, f"{arch}.log"), "w")
+        procs.append((arch, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--elsa", "--out-dir", DRYRUN_DIR], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def stop_dryrun(procs):
+    for _, proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def wait_dryrun(procs, timeout=600):
+    """Waits for the dry run's processes; returns each one's exit code and
+    the last line of its log."""
+    t0 = time.time()
+    out = {}
+    for arch, proc, log in procs:
+        proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+        log.close()
+        with open(os.path.join(DRYRUN_DIR, f"{arch}.log")) as f:
+            out[arch] = (proc.returncode, f.read().splitlines()[-20:])
+    print(f"the dry run's {len(procs)} processes ended {time.time() - t0:.1f}s "
+          f"after the build")
+    return out
+
+
+def dryrun_phase(ends):
+    """18a: every (assigned arch x input shape) dry-run record is ``ok``,
+    or ``skipped`` for ``skip_reason``'s reason; prints the roofline table
+    and the host seconds."""
+    for arch, (rc, tail) in ends.items():
+        check(rc == 0, f"the dry run of {arch} exited {rc}: "
+                       + "\n".join(tail))
+    records = []
+    for name in sorted(os.listdir(DRYRUN_DIR)):
+        if name.endswith(".json"):
+            records.append(roofline.load_record(
+                os.path.join(DRYRUN_DIR, name)))
+    check(len(records) == len(dryrun.ASSIGNED) * len(dryrun.INPUT_SHAPES),
+          f"{len(records)} dry-run records")
+    for rec in records:
+        reason = dryrun.skip_reason(rec["arch"], rec["shape"])
+        check(rec["status"] == ("skipped" if reason else "ok")
+              and rec.get("reason") == reason,
+              f"dry run {rec['arch']} {rec['shape']}: {rec['status']} "
+              f"{rec.get('error', '')}")
+        rec["roofline"] = roofline.roofline_terms(rec)
+    print(roofline.make_table(records))
+    host = sum(r.get("host_s", 0) for r in records)
+    print(f"dry run on meta: {len(records)} records, {host:.1f} host s over "
+          f"them; " + "; ".join(f"{arch}: {tail[-1]}"
+                                for arch, (_, tail) in ends.items()))
+    return [{k: v for k, v in r.items() if k not in ("traceback", "parsed")}
+            for r in records]
+
+
+def _phase8_step():
+    """Phase 8's step on the card: full olmo-1b, bf16, the launcher's
+    channel (plan built once), its first 8 x 64 batch, seed 0."""
+    cfg = get_config("olmo-1b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = init_tree(zoo.get_model(cfg).specs(cfg), gen, cfg.dtype(),
+                     "cuda")
+    _, z = train.elsa_channel_specs(cfg)
+    ch = train.channel_params(cfg, z, "cuda")
+    ch["plan"] = SketchPlan(ch["bucket"], ch["sign"], z)
+    opt = AdamW(lr=3e-3)
+    step = train.make_train_step(cfg, optimizer=opt, elsa_z=z)
+    batch = {**next(train.batch_stream(cfg, 8, 64, "cuda")), "_channel": ch}
+    return step, (tree["frozen"], tree["lora"], opt.init(tree["lora"]),
+                  batch)
+
+
+def _row_diff(a, b, n=20):
+    keys = sorted(k for k in set(a.rows) | set(b.rows)
+                  if a.rows.get(k) != b.rows.get(k))
+    return [(k, a.rows.get(k), b.rows.get(k)) for k in keys[:n]]
+
+
+def _card_peak(build, run):
+    """The bytes ``build()`` allocates and the peak of ``run(*built)``
+    above what was allocated before ``build``, from a reset after one
+    warm-up run (the kernels built, cuBLAS's workspace in place)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    built = build()
+    run(*built)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run(*built)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - m0, out
+
+
+def same_work_phase():
+    """18b and 18c.  (b) Phase 8's full-width olmo-1b ``--elsa`` step counted
+    on the card and dry-run on meta: flops, bytes and each kernel's calls
+    (and declared work) equal, each kernel's calls the step's launches as
+    phase 8 counts them.  (c) The dry run's peak of that step and of one
+    llama3-8b serving tick at batch 8 (phase 5's cache of 128) against
+    ``torch.cuda.max_memory_allocated()`` of the same work on the card,
+    from a reset: within 10%."""
+    out = {}
+    shape = InputShape("phase 8", 64, 8, "train")
+    meta, _ = dryrun.count("olmo-1b", shape, elsa=True, microbatches=1)
+    launches = {}
+
+    def counted_step(step, args):
+        _zero_counts()
+        c = op_cost.count(step, *args)[0]
+        torch.cuda.synchronize()
+        launches.update(_counts())
+        return c
+    peak, card = _card_peak(_phase8_step, counted_step)
+    calls = {k: int(v[0]) for k, v in card.kernels.items()}
+    print(f"olmo-1b --elsa step (bf16, 8 x 64), counted on the card: "
+          f"{card.cost.flops:.6e} flops, {card.cost.bytes:.6e} bytes; on "
+          f"meta {meta.cost.flops:.6e}, {meta.cost.bytes:.6e}; kernel calls "
+          f"{calls}, launches {launches}")
+    diff = _row_diff(card, meta)
+    for k, a, b in diff:
+        print(f"  differs: {k}: card {a}, meta {b}")
+    check(not diff and (card.cost.flops, card.cost.bytes)
+          == (meta.cost.flops, meta.cost.bytes),
+          "the card's count of the step is not the meta dry run's")
+    check(card.kernels == meta.kernels, f"kernels: card {card.kernels}, "
+                                        f"meta {meta.kernels}")
+    want = _per_step(get_config("olmo-1b").num_layers, remat=True)
+    check(calls == launches == want, f"kernel calls {calls}, launches "
+                                     f"{launches}, phase 8's {want}")
+    out["olmo_step"] = dict(flops=card.cost.flops, bytes=card.cost.bytes,
+                            kernels=card.kernels, launches=launches,
+                            card_peak_bytes=peak,
+                            dryrun_peak_bytes=meta.peak_bytes)
+
+    cfg = get_config("llama3-8b")
+    tick = InputShape("phase 5 tick", 128, 8, "decode")
+    meta_tick, _ = dryrun.count("llama3-8b", tick)
+    model = zoo.get_model(cfg)
+    serve = make_serve_step(cfg, window=0, chunk=4096)   # dryrun.build's
+
+    def weights():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = init_tree(model.specs(cfg), gen, cfg.dtype(), "cuda")
+        cache = init_tree(model.cache_specs(cfg, 8, 128), gen, cfg.dtype(),
+                          "cuda")
+        tok = torch.ones((8, 1), dtype=torch.int64, device="cuda")
+        return p["frozen"], p["lora"], cache, {"tokens": tok}
+
+    def counted_tick(*args):
+        return op_cost.count(serve, *args)[0]
+    tick_peak, card_tick = _card_peak(weights, counted_tick)
+    same = not _row_diff(card_tick, meta_tick) and \
+        card_tick.kernels == meta_tick.kernels
+    print(f"llama3-8b tick (bf16, batch 8, cache 128): card "
+          f"{card_tick.cost.flops:.6e} flops, {card_tick.cost.bytes:.6e} "
+          f"bytes; meta {meta_tick.cost.flops:.6e}, "
+          f"{meta_tick.cost.bytes:.6e} ({'the same' if same else 'differ'})")
+    out["llama_tick"] = dict(flops=card_tick.cost.flops,
+                             bytes=card_tick.cost.bytes, same_count=same,
+                             card_peak_bytes=tick_peak,
+                             dryrun_peak_bytes=meta_tick.peak_bytes)
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        ratio = rec["dryrun_peak_bytes"] / rec["card_peak_bytes"]
+        rec["peak_ratio"] = ratio
+        print(f"peak of the {name.replace('_', ' ')}: dry run "
+              f"{rec['dryrun_peak_bytes'] / 2 ** 30:.3f} GiB, card "
+              f"{rec['card_peak_bytes'] / 2 ** 30:.3f} GiB (max allocated "
+              f"above the bytes before its weights), ratio {ratio:.4f}")
+        check(abs(ratio - 1) <= 0.10, f"{name}: the dry run's peak is "
+                                      f"{ratio:.4f} of the card's")
+    return out
+
+
+def _print_breakdown(name, bd):
+    print(f"{name}: device busy {bd['busy_ms']:.3f} ms, profiled wall "
+          f"{bd['wall_ms']:.3f} ms, idle share {bd['idle_share']:.1%}, "
+          f"{bd['kernels']:.0f} kernels (a step)")
+    for us, n, key in bd["rows"][:10]:
+        print(f"  {us / 1e3:8.3f} ms {us / 1e3 / bd['busy_ms']:6.1%}  "
+              f"{n:5.0f}x  {key[:80]}")
+    for g in bd["gaps"]:
+        where = (f"host op {g['host_op']} (outermost {g['outer_host_op']})"
+                 if g["host_op"] else "no host op open (between ops)")
+        print(f"  idle gap {g['ms']:.3f} ms at {g['at_ms']:.1f} ms: {where}")
+
+
+def shares_phase(t_prof, federation, olmo_step):
+    """18e: for the olmo-1b step (phase 9's profile, 18b's count) and the
+    bert-base client step (phase 10's profile and count; f32, as the
+    federation runs it): model flops over (busy x peak) and over (wall x
+    peak), and the counted roofline step over busy."""
+    out = {}
+    fed = federation["profile"]
+    for name, cfg, dtype, shape, busy_ms, wall_ms, counted in (
+            ("olmo-1b step", get_config("olmo-1b"), "bfloat16",
+             InputShape("", 64, 8, "train"), t_prof["device_busy_ms"],
+             t_prof["wall_ms"], olmo_step),
+            ("bert-base client step", get_config("bert-base"), "float32",
+             InputShape("", 128, 16, "train"), fed["device_busy_ms"],
+             fed["wall_ms"], fed["counted"])):
+        peak = roofline.PEAK_FLOPS[dtype]
+        mf = roofline.model_flops(cfg, shape)
+        step_ms, by = roofline.bound_ms(counted["flops"], counted["bytes"],
+                                        dtype)
+        rec = dict(model_flops=mf, peak_flops=peak, busy_ms=busy_ms,
+                   wall_ms=wall_ms, mfu_busy=mf / (busy_ms / 1e3 * peak),
+                   mfu_wall=mf / (wall_ms / 1e3 * peak),
+                   roofline_step_ms=step_ms, roofline_bound_by=by,
+                   roofline_over_busy=step_ms / busy_ms)
+        out[name] = rec
+        print(f"{name} ({dtype}, peak {peak:.3g} FLOP/s): model flops "
+              f"{mf:.4e}; model_flops/(busy x peak) {rec['mfu_busy']:.2%} "
+              f"(busy {busy_ms:.2f} ms); model_flops/(wall x peak) "
+              f"{rec['mfu_wall']:.2%} (wall {wall_ms:.2f} ms); counted "
+              f"roofline step {step_ms:.3f} ms ({by}) = "
+              f"{rec['roofline_over_busy']:.1%} of busy")
+    return out
+
+
 def build_phase():
     """The four libraries, one nvcc each, started together."""
     t0 = time.time()
@@ -3453,8 +3674,18 @@ def main():
         return
     with phase("1 device"):
         smi = device_phase()
+    dry = start_dryrun()
+    try:
+        run_phases(smi, dry)
+    finally:
+        stop_dryrun(dry)
+
+
+def run_phases(smi, dry):
+    """Phases 2 to 18; ``dry`` are phase 18a's dry-run processes."""
     with phase("2 build"):
         build_phase()
+        dry_ends = wait_dryrun(dry)
     with phase("3 kernel against plain version"):
         rows = kernel_phase()
         sweep = lora_cut_sweep()
@@ -3517,6 +3748,20 @@ def main():
         moe_family, moe_launches = moe_family_phase()
     with phase("11 every LoRA shape of the paths against plain version"):
         path_rows = path_shapes_phase(path_calls)
+    with phase("18 analysis and dry run"):
+        analysis = dict(dryrun=dryrun_phase(dry_ends),
+                        same_work=same_work_phase())
+        for name, bd in (
+                ("olmo-1b step (phase 9)", t_prof["breakdown"]),
+                ("bert-base run_clients call, a client step (phase 10)",
+                 federation["profile"]["breakdown"]),
+                ("causal-LM run_clients call, a client step (phase 12)",
+                 causal["breakdown"]),
+                ("grok-1 serving tick (phase 17)",
+                 moe_family["grok-1-314b"]["serving"]["breakdown"])):
+            _print_breakdown(name, bd)
+        analysis["shares"] = shares_phase(
+            t_prof, federation, analysis["same_work"]["olmo_step"])
 
     def pick(kernel, op, case="train", dtype="bfloat16"):
         return next(r for r in ch_rows if r["kernel"] == kernel
@@ -3648,7 +3893,7 @@ def main():
                    "populations": populations,
                    "split_parity": s_parity,
                    "causal_lm_federation": causal,
-                   "moe_family": moe_family,
+                   "moe_family": moe_family, "analysis": analysis,
                    **record}, f, indent=1, default=str)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

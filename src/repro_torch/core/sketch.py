@@ -33,7 +33,11 @@ class SketchPlan:
     first (ties by (y, b)), the order in which the scatter kernel's threads
     take them.  ``gidx`` (Y, D) packs each hash entry into one int for the
     gather kernel: ``bucket[y, d]`` where ``sign[y, d] = +1``, and
-    ``~bucket[y, d]`` where it is -1."""
+    ``~bucket[y, d]`` where it is -1.
+
+    The index needs the hash's values, which a ``meta`` tensor does not
+    hold: a plan for ``meta`` is built on the CPU and moved (:meth:`to`,
+    :func:`make_plan`)."""
     bucket: torch.Tensor    # (Y, D) int32 in [0, Z)
     sign: torch.Tensor      # (Y, D) float32 in {-1, +1}
     z: int
@@ -43,6 +47,10 @@ class SketchPlan:
     gidx: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
+        if self.bucket.device.type == "meta":
+            raise ValueError("SketchPlan: a meta plan has no hash values to "
+                             "index; build it on the CPU and move it with "
+                             ".to('meta')")
         Y, D = self.bucket.shape
         b = self.bucket.to(torch.int64)
         if b.numel():
@@ -65,6 +73,16 @@ class SketchPlan:
         object.__setattr__(self, "gidx", torch.where(
             self.sign < 0, ~bucket, bucket).contiguous())
 
+    def to(self, device) -> "SketchPlan":
+        """The same plan with every tensor on ``device``, the index moved
+        and not rebuilt."""
+        plan = object.__new__(SketchPlan)
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            object.__setattr__(plan, f.name, v.to(device)
+                               if isinstance(v, torch.Tensor) else v)
+        return plan
+
     @property
     def y(self) -> int:
         return self.bucket.shape[0]
@@ -82,7 +100,10 @@ class SketchPlan:
 def make_plan(d: int, y: int, z: int, seed: int = 0,
               device="cuda") -> SketchPlan:
     """The hash rows drawn by the same numpy calls as the JAX package's
-    ``make_plan``, so ``bucket`` and ``sign`` are bit-identical."""
+    ``make_plan``, so ``bucket`` and ``sign`` are bit-identical.  A
+    ``meta`` plan is built on the CPU and moved."""
+    if torch.device(device).type == "meta":
+        return make_plan(d, y, z, seed, "cpu").to(device)
     rng = np.random.default_rng(seed)
     bucket = rng.integers(0, z, size=(y, d), dtype=np.int32)
     sign = rng.choice(np.array([-1.0, 1.0], np.float32), size=(y, d))

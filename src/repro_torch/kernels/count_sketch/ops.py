@@ -13,7 +13,10 @@ kernel in its second mode:
 The raw ops :func:`sketch_scatter` and :func:`sketch_gather` send a CPU
 tensor to the plain versions (``ref.py``) and launch the kernels of
 ``csrc/count_sketch.cu`` on a CUDA tensor, or raise; they carry no gradient.
-Their ``launches`` attributes count kernel launches.
+Their ``launches`` attributes count kernel launches.  A ``meta`` tensor (and
+plan) takes the card's route up to the launch (the same checks and output;
+nothing launched or counted), and every call declares :func:`work` to the
+active cost counter (:mod:`repro_torch.kernels._cost`).
 
 A plan is any object with ``bucket`` (Y, D) int32, ``sign`` (Y, D) float32,
 ``z``, the inverse index ``ptr`` (Y Z + 1,) / ``sidx`` (Y D,) int32 (each
@@ -40,7 +43,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.count_sketch.ref import (compress_ref, decompress_ref,
                                                   gather_sum_ref,
                                                   median_backward_ref)
@@ -74,6 +77,25 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     return _build.load("count_sketch", _SOURCES, _SIGNATURES)
+
+
+def work(op: str, T: int, D: int, Y: int, Z: int, dtype):
+    """``(operations, bytes)`` of one call over T rows, ``op`` one of
+    ``"compress"`` and ``"median backward"`` (the scatter), ``"decompress"``
+    and ``"compress backward"`` (the gather): each input read once and each
+    output written once, the plan's arrays (ptr, sidx, order, bucket, sign)
+    at 4 bytes an entry; the gather reads only the packed index (Y D
+    entries)."""
+    el = dtype.itemsize
+    TD, TYZ, YD, ptr = T * D, T * Y * Z, Y * D, Y * Z + 1
+    nbytes, ops = {
+        "compress": ((TD + TYZ) * el + (ptr + 2 * YD) * 4, 2 * T * YD),
+        "median backward": ((TD + 2 * TYZ) * el + (ptr + 3 * YD) * 4,
+                            2 * T * YD),
+        "decompress": ((TYZ + TD) * el + YD * 4, TD * Y * Y),
+        "compress backward": ((TYZ + TD) * el + YD * 4, 2 * T * YD),
+    }[op]
+    return ops, nbytes
 
 
 def _plan_shapes(plan):
@@ -187,14 +209,18 @@ def sketch_scatter(x, plan, u=None):
         raise ValueError(f"sketch_scatter shapes: x {tuple(x.shape)}, u "
                          f"{None if u is None else tuple(u.shape)}, plan "
                          f"Y={Y} D={D} Z={Z}")
-    if x.device.type == "cpu":
-        if u is None:
-            return compress_ref(x, plan.bucket, plan.sign, Z)
-        return median_backward_ref(x, u, plan.bucket, plan.sign)
-    out = torch.empty(x.shape[:-1] + (Y, Z), dtype=x.dtype, device=x.device)
-    if _launch("scatter", x, u, plan, out, math.prod(x.shape[:-1])):
-        sketch_scatter.launches += 1
-    return out
+    T = math.prod(x.shape[:-1])
+    with _cost.declared("sketch_scatter", work, "compress" if u is None
+                        else "median backward", T, D, Y, Z, x.dtype):
+        if x.device.type == "cpu":
+            if u is None:
+                return compress_ref(x, plan.bucket, plan.sign, Z)
+            return median_backward_ref(x, u, plan.bucket, plan.sign)
+        out = torch.empty(x.shape[:-1] + (Y, Z), dtype=x.dtype,
+                          device=x.device)
+        if _launch("scatter", x, u, plan, out, T):
+            sketch_scatter.launches += 1
+        return out
 
 
 sketch_scatter.launches = 0
@@ -207,15 +233,19 @@ def sketch_gather(u, plan, *, median: bool = True):
     if u.shape[-2:] != (Y, Z):
         raise ValueError(f"sketch_gather shapes: u {tuple(u.shape)}, plan "
                          f"Y={Y} D={D} Z={Z}")
-    if u.device.type == "cpu":
-        if median:
-            return decompress_ref(u, plan.bucket, plan.sign)
-        return gather_sum_ref(u, plan.bucket, plan.sign)
-    out = torch.empty(u.shape[:-2] + (D,), dtype=u.dtype, device=u.device)
-    if _launch("gather", u, None, plan, out, math.prod(u.shape[:-2]),
-               mode=0 if median else 1):
-        sketch_gather.launches += 1
-    return out
+    T = math.prod(u.shape[:-2])
+    with _cost.declared("sketch_gather", work, "decompress" if median
+                        else "compress backward", T, D, Y, Z, u.dtype):
+        if u.device.type == "cpu":
+            if median:
+                return decompress_ref(u, plan.bucket, plan.sign)
+            return gather_sum_ref(u, plan.bucket, plan.sign)
+        out = torch.empty(u.shape[:-2] + (D,), dtype=u.dtype,
+                          device=u.device)
+        if _launch("gather", u, None, plan, out, T,
+                   mode=0 if median else 1):
+            sketch_gather.launches += 1
+        return out
 
 
 sketch_gather.launches = 0
@@ -225,14 +255,15 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None,
             cols=None) -> bool:
     """Check the operands and launch the kernel over ``n_rows`` rows (of
     D features for the scatter's input, of Y x Z for the gather's) into
-    ``out``; returns whether it launched (no rows launch nothing).
+    ``out``; returns whether it launched (no rows, or ``meta`` tensors,
+    launch nothing).
     ``rows`` forces the scatter's route (a tile route's rows a block, or
     ``"rows"`` for the rows route), ``rows`` and ``cols`` (both or neither)
     the gather's tile, for timing and testing only."""
     if kind == "gather" and (rows is None) != (cols is None):
         raise ValueError(f"sketch_gather: a forced tile needs rows and cols, "
                          f"got rows={rows}, cols={cols}")
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"sketch_{kind}: no kernel for device {x.device}")
     suffix = _SUFFIX.get(x.dtype)
     if suffix is None:
@@ -267,7 +298,7 @@ def _launch(kind, x, u, plan, out, n_rows: int, mode=0, rows=None,
         raise ValueError(f"sketch_{kind}: D={D}, Y*Z={Y * Z} need more "
                          f"shared memory than a block has")
     xc = x.contiguous()
-    if n_rows == 0:
+    if n_rows == 0 or x.device.type == "meta":
         return False
     lib = library()
     with torch.cuda.device(x.device):

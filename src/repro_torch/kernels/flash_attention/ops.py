@@ -13,15 +13,20 @@ backward is plain PyTorch on both devices: the JAX package has no backward
 kernel either (a hand-written one is in ROADMAP.md's perf queue).
 
 ``flash_attention_fwd.launches`` counts kernel launches (never plain-version
-calls).
+calls).  A ``meta`` tensor takes the card's route up to the launch (the
+same checks and outputs; nothing launched or counted), and every forward
+declares :func:`work` to the active cost counter
+(:mod:`repro_torch.kernels._cost`); the plain backward's products are
+counted as the aten ops they are.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, attend_mask,
                                                      attention_ref)
 
@@ -42,6 +47,29 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     return _build.load("flash_attention", _SOURCES, {
         name: (_ARGTYPES, ctypes.c_int) for name in _FUNCS.values()})
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head, query i (from 0) against
+    keys j < Sk with j <= i if ``causal`` and j > i - ``window`` if
+    ``window``: the work the masks leave (a kernel that skips masked tiles
+    need do no more)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(B: int, Sq: int, Sk: int, H: int, KV: int, Dqk: int, Dv: int,
+         dtype, causal: bool, window: int):
+    """``(operations, bytes)`` of one forward: q (B Sq H Dqk) and o (B Sq
+    H Dv), k (B Sk KV Dqk) and v (B Sk KV Dv) read or written once, m and
+    l (B H Sq fp32); ``2 (Dqk + Dv)`` operations per attended pair and
+    head (q·k and p·v)."""
+    nbytes = ((B * Sq * H + B * Sk * KV) * (Dqk + Dv)) * dtype.itemsize \
+        + 8 * B * H * Sq
+    ops = 2 * (Dqk + Dv) * B * H * attended_pairs(Sq, Sk, causal, window)
+    return ops, nbytes
 
 
 def _check_shapes(q, k, v):
@@ -68,17 +96,25 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int, scale: float):
     pieces (the kernel copies tiles in 16-byte pieces), and every query
     row attending to a key (with a window, Sq < Sk + window)."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
-    return _launch(q, k, v, causal, window, scale)
+    (B, Sq, H, Dh), (Sk, KV, Dv) = q.shape, v.shape[1:]
+    with _cost.declared("flash_attention", work, B, Sq, Sk, H, KV, Dh, Dv,
+                        q.dtype, bool(causal), int(window)):
+        if q.device.type == "cpu":
+            # o in the kernel's layout (the plain version's is a permuted
+            # view), so the ops after it count the same as on the card
+            o, m, l = attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+            return o.contiguous(), m, l
+        return _launch(q, k, v, causal, window, scale)
 
 
 flash_attention_fwd.launches = 0
 
 
 def _launch(q, k, v, causal, window, scale):
-    if q.device.type != "cuda":
+    """Launch the kernel on CUDA tensors; on ``meta`` tensors, the same
+    checks and outputs and no launch."""
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     fn_name = _FUNCS.get(q.dtype)
     if fn_name is None:
@@ -112,7 +148,7 @@ def _launch(q, k, v, causal, window, scale):
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
+    if o.numel() == 0 or q.device.type == "meta":
         return o, m, l
     fn = getattr(library(), fn_name)
     with torch.cuda.device(q.device):

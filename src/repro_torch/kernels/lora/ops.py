@@ -13,6 +13,10 @@ perf queue).
 
 ``lora_matmul.launches`` counts kernel launches (never plain-version
 calls), so a run can show that its projections went through the kernel.
+A ``meta`` tensor takes the card's route up to the launch: the same checks
+and the same output, then nothing is launched or counted (the dry run,
+:mod:`repro_torch.launch.dryrun`).  Every call declares :func:`work` to the
+active cost counter (:mod:`repro_torch.kernels._cost`).
 
 The library has two routes behind the same C functions, chosen by shape:
 the decode kernels (8 rows of x a block, K split over a cluster) and, from
@@ -28,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.lora.ref import lora_matmul_ref
 
 MAX_RANK = 64
@@ -53,6 +57,13 @@ def library() -> ctypes.CDLL:
                  for name in _ROUTE_FUNCS.values()})
     sigs["lora_matmul_plan"] = (_PLAN_ARGTYPES, ctypes.c_int)
     return _build.load("lora_matmul", _SOURCES, sigs)
+
+
+def work(T: int, K: int, O: int, r: int, dtype):
+    """``(operations, bytes)`` of one call of T rows: each of x, W, A, B
+    and y moved once, ``2 T K O + 2 T K r + 2 T r O`` operations."""
+    nbytes = (T * K + K * O + K * r + r * O + T * O) * dtype.itemsize
+    return 2 * T * K * O + 2 * T * K * r + 2 * T * r * O, nbytes
 
 
 def _uses_tiles(T: int, K: int, O: int, r: int, dtype, aligned: bool) -> bool:
@@ -102,9 +113,12 @@ class LoRAMatmulFunction(torch.autograd.Function):
     def forward(ctx, x, w, a, b, scale):
         ctx.save_for_backward(x, w, a, b)
         ctx.scale = scale
-        if x.device.type == "cpu":
-            return lora_matmul_ref(x, w, a, b, scale)
-        return _launch(x, w, a, b, scale)
+        K, O = w.shape
+        with _cost.declared("lora_matmul", work, x.numel() // max(K, 1), K,
+                            O, a.shape[1], x.dtype):
+            if x.device.type == "cpu":
+                return lora_matmul_ref(x, w, a, b, scale)
+            return _launch(x, w, a, b, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -127,11 +141,12 @@ class LoRAMatmulFunction(torch.autograd.Function):
 
 
 def _launch(x, w, a, b, scale: float, route=None):
-    """Launch the kernel on CUDA tensors.  ``route`` is for timing and
+    """Launch the kernel on CUDA tensors; on ``meta`` tensors, the same
+    checks and output and no launch.  ``route`` is for timing and
     testing the routes only (``chip_smoke.py``, the card tests): ``None``
     lets the shape choose, as every caller in the port does; ``"decode"``
     or ``"tile"`` forces a route, an int a tile kernel's width."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"lora_matmul: no kernel for device {x.device}")
     fn_name = _FUNCS.get(x.dtype)
     if fn_name is None:
@@ -149,7 +164,7 @@ def _launch(x, w, a, b, scale: float, route=None):
         raise ValueError(f"lora_matmul kernel takes rank <= {MAX_RANK}, got {r}")
     T = x.numel() // K
     y = torch.empty(x.shape[:-1] + (O,), dtype=x.dtype, device=x.device)
-    if T == 0 or O == 0:
+    if T == 0 or O == 0 or x.device.type == "meta":
         return y
     n_vec = 16 // x.element_size()
     vec = (K % n_vec == 0 and O % n_vec == 0

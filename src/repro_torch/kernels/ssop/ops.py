@@ -10,6 +10,9 @@ constants and get no gradient), so on the card both directions launch the
 kernel and nothing of size T x D is saved.
 
 ``ssop_apply_td.launches`` counts kernel launches, forward and backward.
+A ``meta`` tensor takes the card's route up to the launch (the same checks
+and output; nothing launched or counted), and every call declares
+:func:`work` to the active cost counter (:mod:`repro_torch.kernels._cost`).
 
 The library has two routes behind the same C functions, chosen by shape:
 the tile route (D split over a cluster of blocks, tiles of H brought in by
@@ -25,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.ssop.ref import ssop_apply_ref
 
 MAX_RANK = 64
@@ -56,6 +59,14 @@ def library() -> ctypes.CDLL:
                  for name in _ROUTE_FUNCS.values()})
     sigs["ssop_plan"] = (_PLAN_ARGTYPES, ctypes.c_int)
     return _build.load("ssop", _SOURCES, sigs)
+
+
+def work(T: int, D: int, r: int, dtype):
+    """``(operations, bytes)`` of one call of T rows: H read and the output
+    written once, U and W read once; ``4 T D r + 2 T r²`` operations (H U,
+    then (H U) W, then its product with Uᵀ and the sum)."""
+    nbytes = (2 * T * D + D * r + r * r) * dtype.itemsize
+    return 4 * T * D * r + 2 * T * r * r, nbytes
 
 
 def _round_up(a: int, b: int) -> int:
@@ -122,20 +133,23 @@ def ssop_apply_td(h, u, w):
     if u.shape != (D, r) or w.shape != (r, r):
         raise ValueError(f"ssop shapes: h {tuple(h.shape)}, u "
                          f"{tuple(u.shape)}, w {tuple(w.shape)}")
-    if h.device.type == "cpu":
-        return ssop_apply_ref(h, u, w)
-    return _launch(h, u, w)
+    with _cost.declared("ssop_apply", work, h.numel() // max(D, 1), D, r,
+                        h.dtype):
+        if h.device.type == "cpu":
+            return ssop_apply_ref(h, u, w)
+        return _launch(h, u, w)
 
 
 ssop_apply_td.launches = 0
 
 
 def _launch(h, u, w, route=None, cluster=0, rows=0):
-    """Launch the kernel on CUDA tensors.  ``route`` (``"rows"`` or
+    """Launch the kernel on CUDA tensors; on ``meta`` tensors, the same
+    checks and output and no launch.  ``route`` (``"rows"`` or
     ``"tile"``) and the tile route's ``cluster`` size and ``rows`` a tile
     force what the rule would choose, for timing and testing only
     (``chip_smoke.py``, the card tests)."""
-    if h.device.type != "cuda":
+    if h.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssop_apply: no kernel for device {h.device}")
     fn_name = _FUNCS.get(h.dtype)
     if fn_name is None:
@@ -151,7 +165,7 @@ def _launch(h, u, w, route=None, cluster=0, rows=0):
     hc, uc, wc = h.contiguous(), u.contiguous(), w.contiguous()
     T = hc.numel() // D
     out = torch.empty_like(hc)
-    if T == 0:
+    if T == 0 or h.device.type == "meta":
         return out
     args = (hc.data_ptr(), uc.data_ptr(), wc.data_ptr(), out.data_ptr(), T, D,
             r)

@@ -65,6 +65,22 @@ def init_tree(specs, generator: torch.Generator, dtype=torch.float32,
     return specs
 
 
+def abstract_tree(specs, dtype=torch.bfloat16, device="meta"):
+    """Empty stand-ins of each spec's shape and dtype on ``device``, with
+    nothing drawn (on ``meta``, nothing allocated): the dry run's trees,
+    the counterpart of the JAX package's ``abstract_tree``.  Walked as
+    :func:`init_tree` walks, non-:class:`Spec` leaves kept as they are."""
+    if is_spec(specs):
+        dt = getattr(torch, specs.dtype) if specs.dtype else dtype
+        return torch.empty(specs.shape, dtype=dt, device=device)
+    if isinstance(specs, dict):
+        return {k: abstract_tree(specs[k], dtype, device)
+                for k in sorted(specs)}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(abstract_tree(s, dtype, device) for s in specs)
+    return specs
+
+
 def spec_leaves(specs):
     """All :class:`Spec` leaves of a tree, in :func:`init_tree` order."""
     if is_spec(specs):

@@ -3,24 +3,26 @@
 (:func:`loss_fn`, :func:`per_example_ce`, :func:`classification_loss`).
 
 The counterpart of the JAX package's ``repro/models/zoo.py`` for the dense
-and MoE families (both through ``models/transformer.py``).  The hybrid,
-ssm, audio and vlm families wait for later slices (ROADMAP.md, queue 1).
+and MoE families (both through ``models/transformer.py``), the encoder's
+specs (bert-base), and its :func:`input_specs`.  The
+hybrid, ssm, audio and vlm families wait for later slices (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.models import bert, transformer
 
 
 class Model(NamedTuple):
     specs: Callable              # cfg -> {'frozen': SpecTree, 'lora': SpecTree}
-    forward: Callable            # (cfg, frozen, lora, batch, **opts)
-    cache_specs: Callable        # (cfg, batch, seq_len) -> SpecTree
-    decode_step: Callable        # (cfg, frozen, lora, cache, batch, **opts)
+    forward: Optional[Callable]  # (cfg, frozen, lora, batch, **opts)
+    cache_specs: Optional[Callable]   # (cfg, batch, seq_len) -> SpecTree
+    decode_step: Optional[Callable]   # (cfg, frozen, lora, cache, batch, **opts)
 
 
 def _lm_forward(cfg, frozen, lora, batch, **opts):
@@ -34,7 +36,10 @@ def _lm_decode(cfg, frozen, lora, cache, batch, **opts):
 
 _LM = Model(transformer.lm_specs, _lm_forward, transformer.lm_cache_specs,
             _lm_decode)
-_FAMILIES = {"dense": _LM, "moe": _LM}
+# the encoder's entry gives its specs (the roofline's parameter count); it
+# trains through its split model (models/split_api.py) and has no decode
+_FAMILIES = {"dense": _LM, "moe": _LM,
+             "encoder": Model(bert.bert_specs, None, None, None)}
 
 
 def get_model(cfg: ArchConfig) -> Model:
@@ -43,6 +48,22 @@ def get_model(cfg: ArchConfig) -> Model:
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
             f"queue 1: modules to port)")
     return _FAMILIES[cfg.family]
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """The model inputs of (arch, input shape) as empty tensors on
+    ``device``: ``tokens`` (B, S) for train and prefill, (B, 1) for decode
+    (one new token against a seq_len cache).  Tokens are int64, as the
+    port's entry points take them, where the JAX package's are int32: a dry
+    run's input bytes are twice JAX's for that reason."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"input_specs: the {cfg.family} family is not ported yet "
+            f"(ROADMAP.md, queue 1 item 10)")
+    seq = shape.seq_len if shape.kind in ("train", "prefill") else 1
+    return {"tokens": torch.empty((shape.global_batch, seq),
+                                  dtype=torch.int64, device=device)}
 
 
 def loss_fn(cfg: ArchConfig, logits, tokens, aux=None):

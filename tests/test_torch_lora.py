@@ -9,6 +9,7 @@ CUDA kernel itself is held against the plain version on the card by
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels.lora import ops as jax_lora_ops
 from repro.kernels.lora.ref import lora_matmul_ref as jax_lora_ref
@@ -71,9 +72,15 @@ def test_bad_shapes_raise():
 
 def test_non_cpu_tensor_never_falls_back_to_the_plain_version():
     """Only a CPU tensor takes the plain version: any other device goes to
-    the kernel launch, which raises where there is no kernel for it."""
-    x, w, a, b = (torch.empty(s, device="meta")
-                  for s in ((3, 128), (128, 256), (128, 4), (4, 256)))
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.lora_matmul(x, w, a, b, 1.0)
+    the kernel launch, which raises where there is no kernel for it (a
+    ``meta`` tensor takes the launch's checks and launches nothing; a fake
+    ``xpu`` tensor stands for a device with no kernel)."""
+    shapes = ((3, 128), (128, 256), (128, 4), (4, 256))
+    with FakeTensorMode():
+        x, w, a, b = (torch.empty(s, device="xpu") for s in shapes)
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.lora_matmul(x, w, a, b, 1.0)
+    y = ops.lora_matmul(*(torch.empty(s, device="meta") for s in shapes),
+                        1.0)
+    assert y.device.type == "meta" and y.shape == (3, 256)
     assert ops.lora_matmul.launches == 0

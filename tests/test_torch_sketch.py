@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.core import sketch as jsketch
 from repro.kernels.count_sketch import ops as jops
@@ -210,10 +211,14 @@ def test_wrappers_on_cpu_use_plain_versions_and_launch_nothing():
         ops.sketch_scatter(torch.zeros(2, 63), plan)
     with pytest.raises(ValueError):
         ops.sketch_gather(torch.zeros(2, 3, 8), plan)
-    with pytest.raises(ValueError, match="no kernel"):
+    with FakeTensorMode():              # a device with no kernel
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.sketch_scatter(torch.empty(2, 64, device="xpu"), plan)
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.sketch_gather(torch.empty(2, 3, 9, device="xpu"), plan)
+    with pytest.raises(TypeError, match="plan"):    # meta needs a meta plan
         ops.sketch_scatter(torch.zeros(2, 64, device="meta"), plan)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.sketch_gather(torch.zeros(2, 3, 9, device="meta"), plan)
+    assert ops.sketch_scatter.launches == 0 and ops.sketch_gather.launches == 0
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.core import ssop as jssop
 from repro.kernels.ssop import ops as jops
@@ -158,6 +159,9 @@ def test_bad_shapes_raise_and_other_devices_never_take_the_plain_version():
         ops.ssop_apply_td(h, u[:63], w)
     with pytest.raises(ValueError):
         ops.ssop_apply_td(h, u, w[:3])
-    h, u, w = (t.to("meta") for t in (h, u, w))
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.ssop_apply_td(h, u, w)
+    with FakeTensorMode():              # a device with no kernel
+        fake = (torch.empty(t.shape, device="xpu") for t in (h, u, w))
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.ssop_apply_td(*fake)
+    out = ops.ssop_apply_td(*(t.to("meta") for t in (h, u, w)))
+    assert out.device.type == "meta" and out.shape == h.shape
